@@ -1,0 +1,4 @@
+from .ops import attention, flash_attention
+from .ref import attention_ref
+
+__all__ = ["attention", "attention_ref", "flash_attention"]

@@ -1,0 +1,82 @@
+"""Model zoo entry point, ported from ``repro.models.zoo``:
+``build(cfg) -> Model`` with ``init_cache``, ``prefill`` and ``decode_step``.
+
+``Model`` is an ``nn.Module`` that holds its parameters; their names are the
+reference's key paths with a layer index after the block, e.g.
+``segments.0.b0.3.attn.wq``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from . import transformer as tf
+from .base import ParamTree, init_tree, param_count
+from .config import ModelConfig
+
+
+class Model(ParamTree):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        """Parameters initialised from ``seed`` on ``device`` (default
+        ``cuda``) in ``dtype``, with the reference's init scheme."""
+        dev = resolve_device(device)
+        decl = tf.model_decl(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        super().__init__(init_tree(decl, gen, dev, dtype))
+        self.cfg = cfg
+        self.decl = decl
+
+    @property
+    def n_params(self) -> int:
+        return param_count(self.decl)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    # -- serving ----------------------------------------------------------------
+    def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16) -> dict:
+        return tf.init_cache(self.cfg, batch, seq_len, dtype, device=self.device)
+
+    def prefill(self, batch: dict, cache: dict):
+        """Fill ``cache`` (in place) from a prompt ``batch["tokens"]`` [B, T];
+        returns (last-token logits [B, V], cache)."""
+        if "frames" in batch:
+            raise NotImplementedError(
+                "encoder-decoder inputs (frames) are not ported yet: the "
+                "'other block families' slice of ROADMAP.md")
+        tokens = batch["tokens"]
+        T = tokens.shape[1]
+        if T > cache["segments"][0]["b0"]["k"].shape[2]:
+            raise ValueError(f"prompt of {T} tokens exceeds the cache")
+        ctx = tf.Ctx(cfg=self.cfg, mode="prefill",
+                     positions=torch.arange(T, device=tokens.device))
+        x = tf.embed_tokens(self, tokens, self.cfg, self._dtype())
+        x = tf.forward(self, x, self.cfg, ctx, cache=cache)
+        cache["pos"] = T
+        return tf.logits_fn(self, x[:, -1], self.cfg), cache
+
+    def decode_step(self, cache: dict, tokens):
+        """tokens: [B, 1] at position ``cache["pos"]`` -> (logits [B, V],
+        cache), the cache extended in place."""
+        pos = cache["pos"]
+        if pos >= cache["segments"][0]["b0"]["k"].shape[2]:
+            raise ValueError(f"cache full at position {pos}")
+        ctx = tf.Ctx(cfg=self.cfg, mode="decode", cache_pos=pos,
+                     positions=torch.arange(pos, pos + 1, device=tokens.device))
+        x = tf.embed_tokens(self, tokens, self.cfg, self._dtype())
+        x = tf.forward(self, x, self.cfg, ctx, cache=cache)
+        cache["pos"] = pos + 1
+        return tf.logits_fn(self, x[:, 0], self.cfg), cache
+
+
+def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0) -> Model:
+    """A ``Model`` on ``device`` (default ``cuda``; raises where CUDA is
+    absent) with parameters in ``dtype`` (default float32)."""
+    return Model(cfg, device=device, dtype=dtype or torch.float32, seed=seed)

@@ -12,6 +12,12 @@ from __future__ import annotations
 import sys
 import types
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (an H100); skips without one")
+
+
 try:
     import hypothesis  # noqa: F401
 except ImportError:

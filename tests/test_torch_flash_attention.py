@@ -1,0 +1,134 @@
+"""The port's flash-attention wrappers and plain version on the CPU, held
+against the JAX package's Pallas kernel (interpret mode) and its oracles."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.models.layers import dot_attention as jax_dot_attention
+from repro_torch.kernels.flash_attention import (attention, attention_ref,
+                                                 flash_attention)
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+
+TOL = 3e-5   # f32, as tests/test_kernels.py
+
+
+def _qkv(seed, B, H, Hkv, S, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, S, D)).astype(np.float32),
+            rng.normal(size=(B, Hkv, S, D)).astype(np.float32),
+            rng.normal(size=(B, Hkv, S, D)).astype(np.float32))
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 2, 256, 64), True, 0),
+    ((1, 2, 384, 128), True, 0),
+    ((1, 1, 256, 64), False, 0),
+    ((2, 1, 256, 64), True, 64),
+    ((1, 1, 200, 80), True, 0),       # ragged S and D
+])
+def test_mha_matches_pallas_kernel(shape, causal, window):
+    B, H, S, D = shape
+    q, k, v = _qkv(0, B, H, H, S, D)
+    ref_kernel = np.asarray(jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, interpret=True))
+    ref_oracle = np.asarray(jax_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    tq, tk, tv = _t(q, k, v)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window,
+                          device="cpu").numpy()
+    plain = attention_ref(tq, tk, tv, causal=causal, window=window).numpy()
+    assert out.shape == shape
+    assert np.abs(out - ref_kernel).max() < TOL
+    assert np.abs(out - ref_oracle).max() < TOL
+    assert np.abs(plain - ref_oracle).max() < TOL
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,kv_len", [
+    (2, 4, 2, 64, 16, True, 0, None),       # the smoke llama's heads
+    (1, 8, 2, 96, 32, True, 0, None),       # H / Hkv = 4
+    (2, 4, 1, 80, 16, False, 0, None),      # MQA, not causal
+    (1, 4, 2, 128, 16, True, 32, None),     # window
+    (2, 4, 2, 64, 16, True, 0, 40),         # kv_len < S
+    (1, 6, 3, 72, 24, False, 0, 50),        # kv_len, not causal
+])
+def test_gqa_and_kv_len_match_dot_attention(B, H, Hkv, S, D, causal, window,
+                                            kv_len):
+    """The model's layout [B, S, H, D] against the JAX model's GQA attention
+    (kv_len as kv_valid), and against the JAX oracle with K/V repeated."""
+    q, k, v = _qkv(1, B, H, Hkv, S, D)
+    qs, ks, vs = (x.transpose(0, 2, 1, 3) for x in (q, k, v))
+    pos = jnp.arange(S, dtype=jnp.int32)
+    kv_valid = None
+    if kv_len is not None:
+        kv_valid = jnp.broadcast_to(pos < kv_len, (B, S))
+    ref = np.asarray(jax_dot_attention(
+        jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(vs), pos, pos,
+        causal=causal, window=window, kv_valid=kv_valid))
+    out = attention(*_t(qs, ks, vs), causal=causal, window=window,
+                    kv_len=kv_len).numpy()
+    assert np.abs(out - ref).max() < TOL
+    if kv_len is None:
+        G = H // Hkv
+        rep = np.asarray(jax_attention_ref(
+            jnp.asarray(q), jnp.repeat(jnp.asarray(k), G, axis=1),
+            jnp.repeat(jnp.asarray(v), G, axis=1), causal=causal,
+            window=window))
+        out_bhsd = flash_attention(*_t(q, k, v), causal=causal, window=window,
+                                   device="cpu").numpy()
+        assert np.abs(out_bhsd - rep).max() < TOL
+
+
+@pytest.mark.parametrize("causal,kv_len", [(True, 200), (False, 130)])
+def test_kv_len_matches_pallas_kernel(causal, kv_len):
+    """kv_len (padded keys) against the Pallas kernel itself."""
+    BH, S, D = 2, 256, 128
+    q, k, v = _qkv(2, 1, BH, BH, S, D)
+    ref = np.asarray(flash_attention_pallas(
+        jnp.asarray(q[0]), jnp.asarray(k[0]), jnp.asarray(v[0]),
+        causal=causal, kv_len=kv_len, interpret=True))
+    out = flash_attention(*_t(q, k, v), causal=causal, kv_len=kv_len,
+                          device="cpu").numpy()[0]
+    assert np.abs(out - ref).max() < TOL
+
+
+def test_bf16_plain_version_matches_oracle():
+    q, k, v = _qkv(3, 1, 2, 2, 256, 128)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    ref = np.asarray(jax_attention_ref(jq, jk, jv).astype(jnp.float32))
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _t(q, k, v))
+    out = flash_attention(tq, tk, tv, device="cpu")
+    assert out.dtype == torch.bfloat16
+    assert np.abs(out.float().numpy() - ref).max() < 3e-2
+
+
+def test_cpu_calls_never_count_launches():
+    before = flash_attention.launches
+    q, k, v = _t(*_qkv(4, 1, 2, 1, 64, 16))
+    flash_attention(q, k, v, device="cpu")
+    attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert flash_attention.launches == before == 0
+
+
+def test_kernel_binding_rejects_cpu_tensors():
+    """The CUDA binding checks its inputs before it builds or launches."""
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, q, q, torch.empty_like(q), causal=True,
+                            window=0, kv_len=8)
+
+
+def test_tensors_off_the_asked_device_raise():
+    q, k, v = _t(*_qkv(5, 1, 2, 2, 32, 16))
+    with pytest.raises(ValueError, match="asked for"):
+        flash_attention(q, k, v, device="meta")
