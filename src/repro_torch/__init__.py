@@ -1,10 +1,14 @@
-"""PyTorch and CUDA port of the ``repro`` model stack, for an NVIDIA H100.
+"""PyTorch and CUDA port of the ``repro`` package, for an NVIDIA H100.
 
 The JAX package ``repro`` is the reference; this package imports nothing of
 it and keeps its own copy of what it needs. The first slice serves
 llama3.2-1b: ``configs`` -> ``models.zoo.build`` -> ``serve.lm.ServeEngine``,
 with prefill attention in a hand-written CUDA kernel
-(``kernels.flash_attention``, source ``csrc/flash_attention.cu``).
+(``kernels.flash_attention``, source ``csrc/flash_attention.cu``). The
+second is the predicate read path: the storage engine (``core``, ``scan``,
+``obs``) under ``dataset.dataset(p).select(...).where(...)``, with the range
+filter in a hand-written CUDA kernel (``kernels.filter``, source
+``csrc/filter.cu``).
 
 Every entry point takes a ``device``. The default is ``"cuda"``, and where
 CUDA is absent the call raises: nothing falls back to the CPU unless the

@@ -2,8 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a library with a plain
 C interface, loaded with ``ctypes``. The build happens at first use, into
-``build/`` at the repository root, and is reused while the sources and flags
-hash the same. A failed build raises: there is no fallback.
+``build/`` at the repository root, and is reused while its source and the
+flags hash the same. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -14,7 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -32,6 +34,8 @@ class Built:
 
 
 _loaded: dict[str, Built] = {}
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -45,20 +49,38 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(src: Path) -> str:
+    """Hash of the flags and the one source built: a change to another
+    kernel's source does not rebuild this one."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def load(name: str) -> Built:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Thread-safe: the read path launches kernels from a thread pool."""
     if name in _loaded:
         return _loaded[name]
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _loaded:
+            _loaded[name] = _make(name)
+    return _loaded[name]
+
+
+def load_all(names) -> dict[str, Built]:
+    """``load`` for several sources, one ``nvcc`` each, all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
+        return dict(zip(names, ex.map(load, names)))
+
+
+def _make(name: str) -> Built:
     src = CSRC / f"{name}.cu"
-    so = BUILD_DIR / f"lib{name}-{_digest()}.so"
+    so = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
     log_path = so.with_suffix(".log")
     t0 = time.perf_counter()
     built_now = not so.exists()
@@ -73,8 +95,6 @@ def load(name: str) -> Built:
                                f"(exit {proc.returncode}):\n{proc.stderr}")
         log_path.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
-    built = Built(lib=ctypes.CDLL(str(so)), path=so,
-                  build_s=time.perf_counter() - t0 if built_now else 0.0,
-                  log=log_path.read_text() if log_path.exists() else "")
-    _loaded[name] = built
-    return built
+    return Built(lib=ctypes.CDLL(str(so)), path=so,
+                 build_s=time.perf_counter() - t0 if built_now else 0.0,
+                 log=log_path.read_text() if log_path.exists() else "")

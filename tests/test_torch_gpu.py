@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the flash-attention kernel against
-its plain version, and the smoke model on CUDA against the CPU. They skip
-where CUDA is absent. On an H100:
+"""Tests of the port that need the card: the flash-attention and range-filter
+kernels against their plain versions, the smoke model on CUDA against the
+CPU, and a predicate read on CUDA against the CPU. They skip where CUDA is
+absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -10,8 +11,12 @@ import pytest
 import torch
 
 import repro_torch.configs as configs
+from repro_torch.data import write_ads_table
+from repro_torch.dataset import dataset
+from repro_torch.kernels.filter import range_mask, range_mask_ref
 from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  flash_attention)
+from repro_torch.scan import C
 from repro_torch.models.zoo import build
 
 pytestmark = pytest.mark.gpu
@@ -77,3 +82,56 @@ def test_smoke_model_on_cuda_matches_cpu(cuda):
     assert flash_attention.launches == before + cfg.n_layers
     scale = ref.abs().max().item()
     assert (out.cpu() - ref).abs().max().item() < 1e-4 * scale + 1e-5
+
+
+def _filter_inputs(seed, C_, N):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(C_, N)).astype(np.float32)
+    pool = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45,
+                     1e-40], np.float32)
+    hit = rng.random((C_, N)) < 0.1
+    x[hit] = rng.choice(pool, int(hit.sum()))
+    lo = rng.uniform(-1.5, 0.0, C_).astype(np.float32)
+    hi = rng.uniform(0.0, 1.5, C_).astype(np.float32)
+    lo[0] = np.float32(1e-45)                   # C("x") > 0
+    return x, lo, hi
+
+
+@pytest.mark.parametrize("C_", [1, 3, 4, 8])
+@pytest.mark.parametrize("N", [1, 2047, 2049, 100_003])
+def test_range_mask_bit_identical(cuda, C_, N):
+    x, lo, hi = _filter_inputs(C_ * 7 + N, C_, N)
+    t = [torch.from_numpy(a).to(cuda) for a in (x, lo, hi)]
+    before = range_mask.launches
+    got = range_mask(*t)
+    torch.cuda.synchronize()
+    assert range_mask.launches == before + 1
+    assert torch.equal(got, range_mask_ref(*t))
+    assert torch.equal(got.cpu(), range_mask_ref(
+        *(torch.from_numpy(a) for a in (x, lo, hi))))
+
+
+def test_range_mask_strided_view(cuda):
+    x, lo, hi = _filter_inputs(3, 8, 10_001)
+    big = torch.from_numpy(x).to(cuda)
+    for view in (big[::2], big[:4, 1::2], big[:, 3:]):
+        n_c = view.shape[0]
+        lo_t = torch.from_numpy(lo[:n_c]).to(cuda)
+        hi_t = torch.from_numpy(hi[:n_c]).to(cuda)
+        assert torch.equal(range_mask(view, lo_t, hi_t),
+                           range_mask_ref(view, lo_t, hi_t))
+
+
+def test_predicate_read_on_cuda_matches_cpu(cuda, tmp_path):
+    path = str(tmp_path / "ads.bln")
+    write_ads_table(path, n_rows=8192, n_sparse=0, n_dense=4,
+                    rows_per_group=2048)
+    pred = (C("dense_0") > 0) & (C("dense_1") <= 1.0)
+    ds = dataset(path, device="cuda").select(["ts", "dense_0"]).where(pred)
+    before = range_mask.launches
+    got = ds.to_table(parallelism=2)
+    assert range_mask.launches == before + len(ds.physical_plan().tasks)
+    want = dataset(path, device="cpu").select(["ts", "dense_0"]) \
+        .where(pred)._with_kernel(False).to_table()
+    for k in want:
+        assert np.array_equal(got[k], want[k])
