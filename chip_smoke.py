@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's two main paths. Serving: full-width llama3.2-1b (random
-weights from the seed, bf16) served by ``ServeEngine``: 8 prompts of 512
-tokens, a prefill and 32 greedy decode steps, with prefill attention in the
-hand-written flash-attention kernel. The predicate read:
+Drives the port's three main paths. Serving: full-width llama3.2-1b
+(random weights from the seed, bf16) served by ``ServeEngine``: 8 prompts of
+512 tokens, a prefill and 32 greedy decode steps, with prefill attention in
+the hand-written flash-attention kernel. The predicate read:
 ``dataset(p, device="cuda").select(...).where(...).to_table()`` over a 4 Mi-row
-ads table and the LM corpus, written by the port's writer, with the range
-filter in the hand-written filter kernel. Phases, one JSON line each:
+ads table, the LM corpus and a 4 Mi-row table of quantized columns, written
+by the port's writer, with the dequantize of BF16 and affine-integer columns
+in the hand-written dequant kernel and the range filter in the hand-written
+filter kernel. The BP32 unpack: ``pack_bp32`` then ``bitunpack`` of 2**24
+values at width 11, in the hand-written unpack kernel. Phases, one JSON line
+each:
 
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
@@ -18,22 +22,36 @@ filter in the hand-written filter kernel. Phases, one JSON line each:
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
-  5. serve          -- the serving path, its launch count, and the kernel
+  5. dequant_kernels   -- the dequant kernel against its plain version on
+                          the card and NumPy on the CPU, bit for bit: every
+                          code type x float32/float64 arithmetic x
+                          float32/bfloat16 output x four shapes, and every
+                          code of the four storage types through the read
+                          path's float64 route against ``dequantize``
+  6. bitunpack_kernels -- the BP32 entry point once, with its launch count;
+                          then the unpack kernel against its plain version
+                          on the card and NumPy on the CPU, exactly: widths
+                          1-32 x n in {1, 31, 32, 8192, 8416, 2**24}
+  7. serve          -- the serving path, its launch count, and the kernel
                        against its plain version on the q, k, v of each of
                        the 16 layers
-  6. profile        -- device time by kernel over one prefill and 8 decode
+  8. profile        -- device time by kernel over one prefill and 8 decode
                        steps
-  7. logits         -- at full width and one layer: prefill logits through
+  9. logits         -- at full width and one layer: prefill logits through
                        the kernel vs the plain version, decode vs a fresh
                        prefill
-  8. times          -- flash attention at the serving shape against its
+ 10. times          -- flash attention at the serving shape against its
                        bound, its plain version and the PyTorch library call
-  9. scan           -- the read path: launch count per scan, results equal
+ 11. scan           -- the read path: launch counts per scan, results equal
                        to the NumPy route, serially and on 4 threads, scan
                        times, and the time split (host stages, device copies
-                       and kernel)
- 10. filter_times   -- the range filter at C=4, N=2**20 against its bound
+                       and kernels)
+ 12. filter_times   -- the range filter at C=4, N=2**20 against its bound
                        and its plain version
+ 13. dequant_times  -- the dequant kernel at the read path's shape and the
+                       bench_quantization probe, against its bound, its
+                       plain version and, for bf16 bits, the PyTorch call
+ 14. bitunpack_times -- the unpack kernel at 2**24 values, widths 11 and 32
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero without the
@@ -64,8 +82,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12          # outside the tensor cores
-
-KERNEL_SOURCES = ("flash_attention", "filter")
+F64_FLOP_PER_S = 34e12          # outside the tensor cores
 
 SERVE_B, SERVE_P, SERVE_NEW, SERVE_MAX_SEQ = 8, 512, 32, 1024
 TOL = {torch.bfloat16: 3e-2, torch.float32: 3e-5}   # tests/test_kernels.py
@@ -100,6 +117,25 @@ def median_ms(fn, samples: int = 25, per_sample: int = 10) -> float:
     return float(np.median(times))
 
 
+def _launch_counters() -> dict:
+    from repro_torch.kernels.bitunpack import bitunpack
+    from repro_torch.kernels.dequant import dequant
+    from repro_torch.kernels.filter import range_mask
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"flash_attention": flash_attention, "range_mask": range_mask,
+            "dequant": dequant, "bitunpack": bitunpack}
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a main path runs."""
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -129,7 +165,7 @@ def phase_build() -> None:
     """Every kernel source, one nvcc each, started together."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.load_all(KERNEL_SOURCES)
+    built = _build.load_all()
     for name, b in built.items():
         regs = [ln.split("info    : ")[-1] for ln in b.log.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -242,7 +278,6 @@ def phase_serve(seed: int):
     """The main path at full width and depth, its launch count, and the
     kernel against its plain version on the q, k, v of every layer."""
     import repro_torch.configs as configs
-    from repro_torch.kernels.filter import range_mask
     from repro_torch.kernels.flash_attention import attention, flash_attention
     from repro_torch.models.zoo import build
     from repro_torch.serve import ServeEngine
@@ -263,13 +298,14 @@ def phase_serve(seed: int):
           f"times, expected {cfg.n_layers}")
 
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    range_mask.launches = 0
+    zero_counts()
     out = eng.generate(prompts, max_new_tokens=SERVE_NEW)      # the main path
-    launches = flash_attention.launches
-    check(launches == cfg.n_layers and range_mask.launches == 0,
-          f"prefill launched the kernel {launches} times, "
-          f"expected {cfg.n_layers}; the filter {range_mask.launches} times")
+    launched = counts()
+    launches = launched["flash_attention"]
+    check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
+                           dequant=0, bitunpack=0),
+          f"serving launched {launched}, expected flash_attention "
+          f"{cfg.n_layers} times and no other kernel")
     gen = out["tokens"]
     check(gen.shape == (SERVE_B, SERVE_NEW) and
           bool(((gen >= 0) & (gen < cfg.vocab)).all()), "generated tokens")
@@ -501,17 +537,206 @@ def phase_filter_kernels(seed: int) -> int:
     return mismatches
 
 
+DEQUANT_CODES = (np.int8, np.uint8, np.int16, np.uint16)
+DEQUANT_SHAPES = ((512, 256), (2**20, 1), (130, 70), "transposed_strided")
+
+
+def _dequant_numpy(q, scale, zero, out_dtype):
+    """The dequant function in NumPy on the CPU: separate multiply and add
+    in the type of scale/zero, bf16 bits reinterpreted, bfloat16 output
+    rounded as the storage layer rounds (``quantize`` to BF16)."""
+    from repro_torch.core.quantization import QuantMode, QuantSpec, quantize
+    if q.dtype == np.uint16:
+        f = (q.astype(np.uint32) << np.uint32(16)).view(np.float32)
+    else:
+        f = (q.astype(scale.dtype) * scale + zero).astype(np.float32)
+    if out_dtype == torch.bfloat16:
+        return quantize(f, QuantSpec(QuantMode.BF16))
+    return f
+
+
+def _same_bits(got, plain, want, what: str) -> float:
+    """The kernel's output against its plain version on the card and the
+    NumPy version, bit for bit; returns the largest difference from the
+    plain version over finite values (0 when the bits agree)."""
+    iv, nv = ((torch.int32, np.uint32) if got.dtype == torch.float32
+              else (torch.int16, np.uint16))
+    torch.cuda.synchronize()
+    bad_dev = int((got.view(iv) != plain.view(iv)).sum())
+    got_np = got.view(iv).cpu().numpy().view(nv)
+    bad_cpu = int((got_np != np.asarray(want).view(nv)).sum())
+    check(bad_dev == 0 and bad_cpu == 0,
+          f"{what}: {bad_dev} values differ from the plain version on the "
+          f"card, {bad_cpu} from NumPy on the CPU")
+    g, p = got.float(), plain.float()
+    fin = torch.isfinite(g) & torch.isfinite(p)
+    return (g[fin] - p[fin]).abs().max().item() if bool(fin.any()) else 0.0
+
+
+def phase_dequant_kernels(seed: int) -> float:
+    """The dequant kernel against its plain version on the card and NumPy on
+    the CPU, bit for bit; returns the largest difference (0.0)."""
+    from repro_torch.core.quantization import (QuantMode, QuantSpec,
+                                               affine_spec_for, dequantize)
+    from repro_torch.kernels.dequant import dequant, dequant_ref
+    rng = np.random.default_rng(seed)
+    max_err, cases = 0.0, []
+    for code in DEQUANT_CODES:
+        info = np.iinfo(code)
+        for shape in DEQUANT_SHAPES:
+            if shape == "transposed_strided":      # [200, 256], strides (3, 600)
+                full = rng.integers(info.min, info.max + 1, (260, 600)).astype(code)
+                q_cpu = full.T[::3, 4:]
+                q = torch.from_numpy(full).cuda().t()[::3, 4:]
+            else:
+                q_cpu = rng.integers(info.min, info.max + 1, shape).astype(code)
+                q = torch.from_numpy(q_cpu).cuda()
+            C = q.shape[1]
+            for arith in (np.float32, np.float64):
+                scale = rng.uniform(1e-3, 1.0, C).astype(arith)
+                zero = rng.normal(size=C).astype(arith)
+                s, z = torch.from_numpy(scale).cuda(), torch.from_numpy(zero).cuda()
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    what = (f"dequant {np.dtype(code).name}{list(q.shape)} "
+                            f"strides {q.stride()} {np.dtype(arith).name} -> "
+                            f"{str(out_dtype).replace('torch.', '')}")
+                    got = dequant(q, s, z, out_dtype)
+                    err = _same_bits(got, dequant_ref(q, s, z, out_dtype),
+                                     _dequant_numpy(q_cpu, scale, zero,
+                                                    out_dtype), what)
+                    max_err = max(max_err, err)
+                    cases.append(what)
+    # every code of each storage type through the read path's route (float64
+    # scale and zero, float32 out) against the storage layer's dequantize
+    n = 100_000
+    columns = {"normal": rng.normal(size=n), "uniform": rng.uniform(-3, 7, n),
+               "skewed": rng.lognormal(0.0, 1.5, n), "constant": np.full(n, 2.5)}
+    specs = [(m, name, affine_spec_for(x, m)) for m in (
+        QuantMode.INT8_AFFINE, QuantMode.UINT8_AFFINE, QuantMode.INT16_AFFINE)
+        for name, x in columns.items()]
+    specs.append((QuantMode.BF16, "all_patterns", QuantSpec(QuantMode.BF16)))
+    every_code = []
+    for mode, name, spec in specs:
+        code = {QuantMode.INT8_AFFINE: np.int8, QuantMode.UINT8_AFFINE: np.uint8,
+                QuantMode.INT16_AFFINE: np.int16, QuantMode.BF16: np.uint16}[mode]
+        info = np.iinfo(code)
+        codes = np.arange(info.min, info.max + 1).astype(code)
+        q = torch.from_numpy(codes).cuda().view(-1, 1)
+        params = torch.tensor([spec.scale, spec.zero], dtype=torch.float64,
+                              device="cuda")
+        got = dequant(q, params[:1], params[1:], torch.float32)
+        plain = dequant_ref(q, params[:1], params[1:], torch.float32)
+        max_err = max(max_err, _same_bits(
+            got, plain, dequantize(codes, spec).reshape(-1, 1),
+            f"every code of {mode.name} ({name} column)"))
+        every_code.append([mode.name, name, len(codes), spec.scale, spec.zero])
+    emit("dequant_kernels", cases=len(cases), mismatches=0, max_abs_err=max_err,
+         compared_with=["dequant_ref on the card", "NumPy on the CPU"],
+         every_code_vs_dequantize=every_code,
+         every_code_list="[mode, column, codes, scale, zero]")
+    return max_err
+
+
+BITUNPACK_NS = (1, 31, 32, 8192, 8192 + 7 * 32, 2**24)
+BITUNPACK_MAIN = dict(n=2**24, width=11)
+
+
+def _bitunpack_numpy(planes: np.ndarray, width: int) -> np.ndarray:
+    """The BP32 unpack in NumPy: uint32[G, w] -> uint32[G*32]."""
+    out = np.zeros((planes.shape[0], 32), np.uint32)
+    lanes = np.arange(32, dtype=np.uint32)
+    for j in range(width):
+        out |= ((planes[:, j:j + 1] >> lanes) & np.uint32(1)) << np.uint32(j)
+    return out.reshape(-1)
+
+
+def phase_bitunpack_kernels(seed: int) -> tuple[int, float]:
+    """The BP32 entry point once (``pack_bp32`` on the host, ``bitunpack``
+    on the card) with its launch count; then the kernel against its plain
+    version on the card and NumPy on the CPU, exactly. Returns the main
+    path's launches and the mismatches (0)."""
+    from repro_torch.kernels.bitunpack import (bitunpack, bitunpack_ref,
+                                               pack_bp32)
+    rng = np.random.default_rng(seed)
+    n, w = BITUNPACK_MAIN["n"], BITUNPACK_MAIN["width"]
+    values = rng.integers(0, 2**w, n, dtype=np.uint64).astype(np.uint32)
+    planes = pack_bp32(values, w)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = bitunpack(planes, w, n)                               # the main path
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = counts()
+    check(launched == dict(flash_attention=0, range_mask=0, dequant=0,
+                           bitunpack=1), f"bitunpack path launched {launched}")
+    check(np.array_equal(out.cpu().numpy(), values),
+          "bitunpack of pack_bp32 differs from the values packed")
+    emit("bitunpack_kernels", main_path="pack_bp32 -> bitunpack", n=n,
+         width=w, planes=list(planes.shape), launches=launched["bitunpack"],
+         wall_ms=wall_s * 1e3, equal_to_values=True)
+
+    # 2**24 values: random plane words, every other width as a strided view
+    big = rng.integers(0, 2**32, (2**24 // 32, 32), dtype=np.uint64) \
+        .astype(np.uint32)
+    big_dev = torch.from_numpy(big).cuda()
+    numpy_big_widths = (1, 11, 32)     # NumPy at 2**24 takes ~0.1 s a plane
+    cases = 0
+    for w in range(1, 33):
+        for n in BITUNPACK_NS:
+            if n < 2**24:
+                values = rng.integers(0, 2**w, n, dtype=np.uint64) \
+                    .astype(np.uint32)
+                planes = pack_bp32(values, w)
+                pd = torch.from_numpy(planes).cuda()
+                want = _bitunpack_numpy(planes, w)[:n]
+                check(np.array_equal(want, values), f"NumPy unpack w={w} n={n}")
+            else:
+                pd = big_dev[:, :w] if w % 2 == 0 else big_dev[:, :w].contiguous()
+                want = (_bitunpack_numpy(big[:, :w], w)[:n]
+                        if w in numpy_big_widths else None)
+            got = bitunpack(pd, w, n)
+            plain = bitunpack_ref(pd, w)[:n]
+            torch.cuda.synchronize()
+            bad_dev = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
+            bad_cpu = (0 if want is None
+                       else int((got.cpu().numpy() != want).sum()))
+            check(bad_dev == 0 and bad_cpu == 0,
+                  f"bitunpack w={w} n={n} strides {pd.stride()}: {bad_dev} "
+                  f"values differ from the plain version on the card, "
+                  f"{bad_cpu} from NumPy")
+            cases += 1
+    emit("bitunpack_kernels", cases=cases, widths="1-32",
+         n=list(BITUNPACK_NS), mismatches=0,
+         compared_with=["bitunpack_ref on the card",
+                        "NumPy on the CPU (n < 2**24: every width; n = 2**24: "
+                        f"widths {list(numpy_big_widths)})"],
+         strided_views_at_2_24="even widths")
+    return launched["bitunpack"], 0.0
+
+
 ADS = dict(n_rows=2**22, n_sparse=0, n_dense=16, rows_per_group=2**20)
 ADS_COLUMNS = ["user_id", "ts", *(f"dense_{i}" for i in range(16)), "label"]
 LM_COLUMNS = ["doc_id", "tokens", "quality", "n_tokens"]
+QUANT = dict(n_rows=2**22, rows_per_group=2**20)
+QUANT_COLUMNS = ["id", "q_i8", "q_u8", "q_i16", "q_bf16", "q_fp8", "q_fp16"]
 
 
 def _scan_queries():
+    """(query, table, columns, predicate, dequantized, dequant launches per
+    scan). The ads scan dequantizes its 4 BF16 predicate columns and 12 BF16
+    payload columns in each of 4 row groups; the quantized table its INT8
+    and INT16 predicate columns and, dequantized, its UINT8 and BF16 payload
+    columns (FP8 and FP16 stay in NumPy); the LM corpus has no quantized
+    column."""
     from repro_torch.scan import C
     ads_pred = ((C("dense_0") > 0) & (C("dense_1") <= 1.0)
                 & (C("dense_2") >= -1.0) & (C("dense_3") < 0.5))
-    return [("ads", ADS_COLUMNS, ads_pred),
-            ("lm_corpus", LM_COLUMNS, C("quality") >= 0.5)]
+    quant_pred = (C("q_i8") > -0.5) & (C("q_i16") <= 2.0)
+    return [("ads", "ads", ADS_COLUMNS, ads_pred, True, 64),
+            ("lm_corpus", "lm_corpus", LM_COLUMNS, C("quality") >= 0.5, True, 0),
+            ("quant", "quant", QUANT_COLUMNS, quant_pred, True, 16),
+            ("quant_raw", "quant", QUANT_COLUMNS, quant_pred, False, 8)]
 
 
 def _same_table(a: dict, b: dict) -> bool:
@@ -530,26 +755,31 @@ def _same_table(a: dict, b: dict) -> bool:
 
 
 def _device_split(prof) -> dict:
-    """Device ms of the copies and the filter kernel in one profiled scan."""
+    """Device ms of the copies and the kernels in one profiled scan."""
     from torch.autograd import DeviceType
-    split = {"h2d_ms": 0.0, "kernel_ms": 0.0, "d2h_ms": 0.0, "other_ms": 0.0}
+    split = {"h2d_ms": 0.0, "d2h_ms": 0.0, "filter_kernel_ms": 0.0,
+             "dequant_kernel_ms": 0.0, "other_ms": 0.0}
+    calls = {"filter_kernel": 0, "dequant_kernel": 0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         ms = e.self_device_time_total / 1e3
-        key = ("h2d_ms" if "HtoD" in e.key else "d2h_ms" if "DtoH" in e.key
-               else "kernel_ms" if "range_mask" in e.key else "other_ms")
-        split[key] += ms
-    return split
+        key = ("h2d" if "HtoD" in e.key else "d2h" if "DtoH" in e.key
+               else "filter_kernel" if "range_mask" in e.key
+               else "dequant_kernel" if "dequant_kernel" in e.key else "other")
+        split[key + "_ms"] += ms
+        if key in calls:
+            calls[key] += e.count
+    return {**split, "kernel_calls": calls}
 
 
-def phase_scan(seed: int) -> int:
-    """The predicate read path on two tables written by the port's writer;
-    returns the filter's launches in the ads table's serial scan."""
-    from repro_torch.data import write_ads_table, write_lm_corpus
+def phase_scan(seed: int) -> tuple[int, int]:
+    """The predicate read path on three tables written by the port's writer;
+    returns the filter's and the dequant kernel's launches in the ads
+    table's serial scan."""
+    from repro_torch.data import (write_ads_table, write_lm_corpus,
+                                  write_quant_table)
     from repro_torch.dataset import dataset
-    from repro_torch.kernels.filter import range_mask
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.obs import trace
     from torch.profiler import ProfilerActivity, profile
 
@@ -557,49 +787,55 @@ def phase_scan(seed: int) -> int:
     main_launches = None
     try:
         paths = {"ads": os.path.join(tmp, "ads.bln"),
-                 "lm_corpus": os.path.join(tmp, "lm.bln")}
+                 "lm_corpus": os.path.join(tmp, "lm.bln"),
+                 "quant": os.path.join(tmp, "quant.bln")}
         for name, path in paths.items():
             t0 = time.perf_counter()
             if name == "ads":
                 write_ads_table(path, seed=seed, **ADS)
+            elif name == "quant":
+                write_quant_table(path, seed=seed, **QUANT)
             else:
                 write_lm_corpus(path, seed=seed)
             emit("scan", table=name, write_s=time.perf_counter() - t0,
                  file_bytes=os.path.getsize(path),
-                 config=ADS if name == "ads" else "write_lm_corpus defaults",
+                 config={"ads": ADS, "quant": QUANT}.get(
+                     name, "write_lm_corpus defaults"),
                  reduced=["n_sparse 32 -> 0"] if name == "ads" else [])
 
-        for name, cols, pred in _scan_queries():
-            path = paths[name]
-            ds = dataset(path, device="cuda").select(cols).where(pred)
+        for query, table, cols, pred, dequantized, want_dq in _scan_queries():
+            path = paths[table]
+            ds = dataset(path, device="cuda").select(cols).where(pred) \
+                .dequantized(dequantized)
             groups = sum(1 for t in ds.physical_plan().tasks
                          if t.pages is None or len(t.pages))
             ds.to_table()                                  # warm-up
             runs = {}
             for label, kw in (("serial", {}),
                               ("parallel", dict(parallelism=4, io_depth=2))):
-                flash_attention.launches = 0
-                range_mask.launches = 0
+                zero_counts()
                 got = ds.to_table(**kw)                     # the main path
-                launches = range_mask.launches
-                check(launches == groups and flash_attention.launches == 0,
-                      f"{name} {label}: {launches} filter launches for "
-                      f"{groups} evaluated row groups")
-                runs[label] = (got, launches)
-                if name == "ads" and label == "serial":
-                    main_launches = launches
+                launched = counts()
+                check(launched == dict(flash_attention=0, range_mask=groups,
+                                       dequant=want_dq, bitunpack=0),
+                      f"{query} {label}: launched {launched}, expected the "
+                      f"filter once for each of {groups} evaluated row "
+                      f"groups and dequant {want_dq} times")
+                runs[label] = (got, launched)
+                if query == "ads" and label == "serial":
+                    main_launches = launched
             plain = dataset(path, device="cuda").select(cols).where(pred) \
-                ._with_kernel(False)
+                .dequantized(dequantized)._with_kernel(False)
             want, want_ids = plain.to_table(), plain.row_ids()
             n_out = len(want_ids)
-            check(0 < n_out < ds.num_rows, f"{name}: {n_out} rows kept")
+            check(0 < n_out < ds.num_rows, f"{query}: {n_out} rows kept")
             check(np.array_equal(ds.row_ids(), want_ids),
-                  f"{name}: row ids differ from the NumPy route")
+                  f"{query}: row ids differ from the NumPy route")
             for label, (got, _) in runs.items():
                 check(_same_table(got, want),
-                      f"{name} {label}: columns differ from the NumPy route")
+                      f"{query} {label}: columns differ from the NumPy route")
                 check(all(len(v) == n_out for v in got.values()),
-                      f"{name} {label}: column lengths")
+                      f"{query} {label}: column lengths")
 
             size = os.path.getsize(path)
             times = {}
@@ -617,12 +853,18 @@ def phase_scan(seed: int) -> int:
                 traced_s = time.perf_counter() - t0
             stages = {k: {"calls": a.count, "ms": a.seconds * 1e3}
                       for k, a in sorted(tracer.aggregate().items())}
+            by_column: dict = {}             # decode and dequantize ms
+            for rec in tracer.spans:
+                if rec.name in ("decode.decode", "decode.dequantize"):
+                    key = f"{rec.name[7:]}:{rec.args.get('column')}"
+                    by_column[key] = by_column.get(key, 0.0) + rec.dur * 1e3
             acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
             with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
                 ds.to_table()
                 profiled_s = time.perf_counter() - t0
-            emit("scan", table=name, columns=len(cols), predicate=repr(pred),
+            emit("scan", query=query, table=table, columns=len(cols),
+                 predicate=repr(pred), dequantized=dequantized,
                  rows=ds.num_rows, rows_out=n_out, row_groups=groups,
                  launches_serial=runs["serial"][1],
                  launches_parallel=runs["parallel"][1],
@@ -634,10 +876,11 @@ def phase_scan(seed: int) -> int:
                  rows_per_s_parallel4_io2=ds.num_rows / times["parallel"],
                  file_bytes_per_s_parallel4_io2=size / times["parallel"],
                  traced_ms=traced_s * 1e3, host_stages=stages,
+                 host_ms_by_column=by_column,
                  profiled_ms=profiled_s * 1e3, device=_device_split(prof))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return main_launches
+    return main_launches["range_mask"], main_launches["dequant"]
 
 
 def _device_ms_per_call(fn, calls: int = 50, kernel: str = "") -> float:
@@ -661,38 +904,124 @@ def _device_ms_per_call(fn, calls: int = 50, kernel: str = "") -> float:
     return total_us / 1e3 / calls
 
 
+def _time_kernel(fn, plain, *, kernel: str, bytes_moved: int, ops: int,
+                 op_rate: float, library=None) -> tuple[dict, dict]:
+    """A kernel's device time a call over 50 calls, twice with the inputs
+    warm in L2 and once cold (a 128 MB buffer written between calls), beside
+    its bound, its plain version and the library call (None where no single
+    PyTorch call computes the function). Returns the row of the kernels line
+    and the other fields to print."""
+    ms = _device_ms_per_call(fn)
+    plain_ms = _device_ms_per_call(plain)
+    library_ms = _device_ms_per_call(library) if library else None
+    ms2 = _device_ms_per_call(fn)
+    wall_ms = median_ms(fn)
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")   # > L2
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    cold_ms = _device_ms_per_call(cold, kernel=kernel)
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / op_rate
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    row = dict(ms=min(ms, ms2), plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    extra = dict(ms_runs=[ms, ms2], l2="warm", cold_l2_ms=cold_ms,
+                 cold_l2_roofline_share=bound_ms / cold_ms,
+                 wall_ms_per_call_back_to_back=wall_ms, bytes=bytes_moved,
+                 ops=ops, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
+                 roofline_share=bound_ms / row["ms"])
+    return row, extra
+
+
 def phase_filter_times(seed: int) -> dict:
     """The range filter at the ads scan's shape (4 columns, one 2**20-row
-    group) against its bound and its plain version, inputs warm in L2."""
+    group) against its bound and its plain version."""
     from repro_torch.kernels.filter import range_mask, range_mask_ref
     C, N = 4, 2**20
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((C, N), dtype=np.float32)).cuda()
     lo, hi = (torch.from_numpy(b).cuda() for b in _filter_bounds(rng, C, "gt0"))
-    ms = _device_ms_per_call(lambda: range_mask(x, lo, hi))
-    plain_ms = _device_ms_per_call(lambda: range_mask_ref(x, lo, hi))
-    ms2 = _device_ms_per_call(lambda: range_mask(x, lo, hi))
-    wall_ms = median_ms(lambda: range_mask(x, lo, hi))
-    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")  # > L2
-
-    def cold():
-        flush.zero_()
-        range_mask(x, lo, hi)
-
-    cold_ms = _device_ms_per_call(cold, kernel="range_mask")
-    bytes_moved = (4 * C + 1) * N
-    ops = 2 * C * N                              # two compares per value
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    row = dict(ms=min(ms, ms2), plain_ms=plain_ms, library_ms=None,
-               bound_ms=bound_ms,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    emit("filter_times", C=C, N=N, ms_runs=[ms, ms2], l2="warm",
-         cold_l2_ms=cold_ms, cold_l2_roofline_share=bound_ms / cold_ms,
-         wall_ms_per_call_back_to_back=wall_ms, bytes=bytes_moved, ops=ops,
-         bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
-         roofline_share=bound_ms / row["ms"], **row)
+    row, extra = _time_kernel(
+        lambda: range_mask(x, lo, hi), lambda: range_mask_ref(x, lo, hi),
+        kernel="range_mask", bytes_moved=(4 * C + 1) * N,
+        ops=2 * C * N, op_rate=F32_FLOP_PER_S)      # two compares per value
+    emit("filter_times", C=C, N=N, **extra, **row)
     return row
+
+
+def phase_dequant_times(seed: int) -> dict:
+    """The dequant kernel at the read path's shape (one BF16 column of a
+    2**20-row group to float32: the row of the kernels line), at the probe
+    shape of benchmarks/bench_quantization.py:45 ([512, 256] int8 to
+    bfloat16, float32 arithmetic) and on an INT16 column through the
+    float64 route. Each reads its codes and writes its values once."""
+    from repro_torch.core.quantization import QuantMode, QuantSpec, quantize
+    from repro_torch.kernels.dequant import dequant, dequant_ref
+    rng = np.random.default_rng(seed)
+    N = 2**20
+    bits = quantize(rng.normal(size=N).astype(np.float32),
+                    QuantSpec(QuantMode.BF16))
+    cases = [
+        ("read_path_bf16", torch.from_numpy(bits).cuda().view(N, 1),
+         torch.float64, torch.float32),
+        ("bench_quantization_probe",
+         torch.from_numpy(rng.integers(-128, 128, (512, 256)).astype(np.int8))
+         .cuda(), torch.float32, torch.bfloat16),
+        ("int16_column_f64",
+         torch.from_numpy(rng.integers(-2**15, 2**15, (N, 1)).astype(np.int16))
+         .cuda(), torch.float64, torch.float32),
+    ]
+    rows = {}
+    for name, q, arith, out_dtype in cases:
+        C = q.shape[1]
+        s = torch.from_numpy(rng.uniform(1e-3, 1.0, C)).to("cuda", arith)
+        z = torch.from_numpy(rng.normal(size=C)).to("cuda", arith)
+        out_size = torch.empty(0, dtype=out_dtype).element_size()
+        bits_only = q.dtype == torch.uint16
+        # a shift per value for bf16 bits, else a multiply and an add
+        ops = q.numel() * (1 if bits_only else 2)
+        rate = F64_FLOP_PER_S if arith == torch.float64 and not bits_only \
+            else F32_FLOP_PER_S
+        row, extra = _time_kernel(
+            lambda: dequant(q, s, z, out_dtype),
+            lambda: dequant_ref(q, s, z, out_dtype), kernel="dequant_kernel",
+            bytes_moved=q.numel() * (q.element_size() + out_size)
+            + (0 if bits_only else 2 * C * s.element_size()),
+            ops=ops, op_rate=rate,
+            library=(lambda: q.view(torch.bfloat16).float())
+            if bits_only and out_dtype == torch.float32 else None)
+        emit("dequant_times", case=name, shape=list(q.shape),
+             q=str(q.dtype).replace("torch.", ""),
+             arith=str(arith).replace("torch.", ""),
+             out=str(out_dtype).replace("torch.", ""), **extra, **row)
+        rows[name] = row
+    return rows["read_path_bf16"]
+
+
+def phase_bitunpack_times(seed: int) -> dict:
+    """The unpack kernel on 2**24 values at widths 11 (the entry point's
+    row of the kernels line) and 32. Each reads ceil(n / 32) * w plane
+    words and writes n values once; the work is a bit extract and an insert
+    per bit of each value, counted at the float32 rate outside the tensor
+    cores (integer lanes)."""
+    from repro_torch.kernels.bitunpack import bitunpack, bitunpack_ref
+    rng = np.random.default_rng(seed)
+    n, rows = 2**24, {}
+    for w in (BITUNPACK_MAIN["width"], 32):
+        planes = torch.from_numpy(rng.integers(0, 2**32, (n // 32, w),
+                                               dtype=np.uint64)
+                                  .astype(np.uint32)).cuda()
+        row, extra = _time_kernel(
+            lambda: bitunpack(planes, w, n),
+            lambda: bitunpack_ref(planes, w), kernel="bitunpack_kernel",
+            bytes_moved=4 * (planes.numel() + n), ops=2 * n * w,
+            op_rate=F32_FLOP_PER_S)
+        emit("bitunpack_times", n=n, width=w, **extra, **row)
+        rows[w] = row
+    return rows[BITUNPACK_MAIN["width"]]
 
 
 def main(argv=None) -> int:
@@ -706,14 +1035,18 @@ def main(argv=None) -> int:
     phase_build()
     serve_err = phase_kernels(args.seed)
     filter_err = phase_filter_kernels(args.seed)
+    dequant_err = phase_dequant_kernels(args.seed)
+    bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
     model, prompts, gen, launches = phase_serve(args.seed)
     phase_profile(model, prompts)
     del model
     torch.cuda.empty_cache()
     phase_logits(args.seed, gen)
     row = phase_times(args.seed)
-    scan_launches = phase_scan(args.seed)
+    scan_launches, dequant_launches = phase_scan(args.seed)
     filter_row = phase_filter_times(args.seed)
+    dequant_row = phase_dequant_times(args.seed)
+    bitunpack_row = phase_bitunpack_times(args.seed)
     print(json.dumps({"kernels": [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -723,7 +1056,17 @@ def main(argv=None) -> int:
              source="src/repro_torch/csrc/filter.cu",
              replaces="src/repro/kernels/filter/kernel.py:31",
              launches=scan_launches, max_abs_err=float(filter_err),
-             **filter_row)]}), flush=True)
+             **filter_row),
+        dict(name="dequant", route="cuda",
+             source="src/repro_torch/csrc/dequant.cu",
+             replaces="src/repro/kernels/dequant/kernel.py:38",
+             launches=dequant_launches, max_abs_err=dequant_err,
+             **dequant_row),
+        dict(name="bitunpack", route="cuda",
+             source="src/repro_torch/csrc/bitunpack.cu",
+             replaces="src/repro/kernels/bitunpack/kernel.py:33",
+             launches=bitunpack_launches, max_abs_err=bitunpack_err,
+             **bitunpack_row)]}), flush=True)
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

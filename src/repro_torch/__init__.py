@@ -8,7 +8,11 @@ with prefill attention in a hand-written CUDA kernel
 second is the predicate read path: the storage engine (``core``, ``scan``,
 ``obs``) under ``dataset.dataset(p).select(...).where(...)``, with the range
 filter in a hand-written CUDA kernel (``kernels.filter``, source
-``csrc/filter.cu``).
+``csrc/filter.cu``). The third is the quantized-column read: the same path's
+dequantize of BF16 and affine-integer columns in a hand-written CUDA kernel
+(``kernels.dequant``, ``csrc/dequant.cu``), and the BP32 unpack as an entry
+point of its own, ``kernels.bitunpack.{pack_bp32, bitunpack}``
+(``csrc/bitunpack.cu``).
 
 Every entry point takes a ``device``. The default is ``"cuda"``, and where
 CUDA is absent the call raises: nothing falls back to the CPU unless the

@@ -205,7 +205,8 @@ class BullionReader:
 
     def _dataset(self, device=None):
         """One-file lazy Dataset over this (still caller-owned) reader;
-        ``device`` is where its range filter runs (default ``cuda``)."""
+        ``device`` is where its dequantize and range filter run (default
+        ``cuda``)."""
         from ..dataset.core import Dataset
         return Dataset.from_reader(self, device)
 

@@ -4,7 +4,9 @@
 motifs, so a language model trained on it shows a real learning curve.
 ``write_ads_table`` reproduces the paper's Table 1 regime: a wide table of
 sparse list<int64> features with sliding-window click sequences, quality
-scores, and quantized float features.
+scores, and quantized float features. ``write_quant_table`` (the port's own)
+stores one float feature in each quantization mode of §2.4 but the dual-FP16
+pair: INT8/UINT8/INT16 affine, BF16, FP8 E4M3 and FP16.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import os
 
 import numpy as np
 
-from ..core import BullionWriter, ColumnSpec, QuantMode, QuantSpec, quality_sort
+from ..core import (BullionWriter, ColumnSpec, QuantMode, QuantSpec,
+                    affine_spec_for, quality_sort)
 from ..core.sparse_delta import SyntheticClickSeq
 
 
@@ -81,5 +84,38 @@ def write_ads_table(path: str, *, n_rows: int = 8192, n_sparse: int = 32,
     table["label"] = (rng.random(n_rows) < 0.03).astype(np.int8)
     w = BullionWriter(path, schema, rows_per_group=rows_per_group,
                       props={"kind": "ads-table"})
+    w.write_table(table)
+    return w.close()
+
+
+def write_quant_table(path: str, *, n_rows: int = 8192, seed: int = 0,
+                      rows_per_group: int = 2048) -> dict:
+    """Float features stored in six quantization modes (§2.4), beside an
+    int64 ``id``: ``q_i8`` (N(0, 1), INT8 affine), ``q_u8`` (U(0, 10),
+    UINT8 affine), ``q_i16`` (lognormal, skewed, INT16 affine), each with
+    ``affine_spec_for`` its whole column; ``q_bf16``, ``q_fp8`` (FP8 E4M3)
+    and ``q_fp16``, N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    table = {
+        "id": np.arange(n_rows, dtype=np.int64),
+        "q_i8": rng.normal(size=n_rows).astype(np.float32),
+        "q_u8": rng.uniform(0.0, 10.0, n_rows).astype(np.float32),
+        "q_i16": rng.lognormal(0.0, 1.0, n_rows).astype(np.float32),
+        "q_bf16": rng.normal(size=n_rows).astype(np.float32),
+        "q_fp8": rng.normal(size=n_rows).astype(np.float32),
+        "q_fp16": rng.normal(size=n_rows).astype(np.float32),
+    }
+    modes = {"q_i8": QuantMode.INT8_AFFINE, "q_u8": QuantMode.UINT8_AFFINE,
+             "q_i16": QuantMode.INT16_AFFINE}
+    schema = [ColumnSpec("id", "int64")]
+    schema += [ColumnSpec(name, "float32",
+                          quant=affine_spec_for(table[name], mode))
+               for name, mode in modes.items()]
+    schema += [ColumnSpec(name, "float32", quant=QuantSpec(mode))
+               for name, mode in (("q_bf16", QuantMode.BF16),
+                                  ("q_fp8", QuantMode.FP8_E4M3),
+                                  ("q_fp16", QuantMode.FP16))]
+    w = BullionWriter(path, schema, rows_per_group=rows_per_group,
+                      props={"kind": "quant-table"})
     w.write_table(table)
     return w.close()

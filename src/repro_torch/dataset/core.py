@@ -7,9 +7,10 @@ only rewrites an immutable ``LogicalPlan``; no I/O happens until a terminal
 and executes it. The same plan runs unchanged over single- and multi-file
 datasets.
 
-``dataset(path, device=...)`` names where the predicate's range filter runs
-(default ``cuda``; it raises where CUDA is absent unless given ``"cpu"``).
-Results are NumPy tables on the host either way.
+``dataset(path, device=...)`` names where the dequantize of BF16 and
+affine-integer columns and the predicate's range filter run (default
+``cuda``; it raises where CUDA is absent unless given ``"cpu"``). Results are
+NumPy tables on the host either way.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ def dataset(path_or_paths: PathSpec, *,
     process-wide footer cache (repeated opens of unchanged files parse
     nothing). ``coalesce_gap`` overrides the readers' pread-coalescing hole
     budget in bytes (default: ``BULLION_COALESCE_GAP`` or 64 KiB).
-    ``device`` is where the range filter runs: ``cuda`` when None (raises
-    where CUDA is absent), or ``"cpu"`` for the plain version."""
+    ``device`` is where the dequantize and the range filter run: ``cuda``
+    when None (raises where CUDA is absent), or ``"cpu"`` for the plain
+    versions."""
     from .source import discover
     dev = resolve_device(device)
     return Dataset(DataSource(discover(path_or_paths),

@@ -9,10 +9,13 @@ out in ``execute_group``, which orders the stages exactly once:
     deletion-mask -> dequantize -> filter -> gather
 
 ``decode_group`` is the pread+decode+mask+dequantize core (moved here from
-``BullionReader.project``); ``execute_group`` layers predicate evaluation
-(NumPy or the range-filter kernel on the card, ``kernels.filter``) and
-raw-row-id selection on top. Results are NumPy tables on the host; only the
-filter's columns go to the device and its mask comes back.
+``BullionReader.project``); its dequantize runs in the dequant kernel on the
+card (``kernels.dequant``) for BF16 and affine-integer columns, in NumPy for
+the other modes. ``execute_group`` layers predicate evaluation (NumPy or the
+range-filter kernel on the card, ``kernels.filter``) and raw-row-id
+selection on top. Results are NumPy tables on the host: the quantized codes
+and the filter's columns go to the device, the values and the mask come
+back.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from ..core import integrity as _integrity
 from ..core import pages as pages_mod
 from ..core.footer import ColKind, PageType, Sec, ShardCorruptError
-from ..core.quantization import QuantMode, dequantize
+from ..core.quantization import QuantMode, QuantSpec, dequantize
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from ..scan.predicate import Predicate, conjunctive_ranges, evaluate
@@ -122,11 +125,39 @@ def _mask_fill(fv, col: int, rows: int):
     return np.zeros(rows, dt)
 
 
+# the modes the dequant kernel computes (the TPU kernel's two bodies); FP16,
+# FP8 and the dual-FP16 halves stay in NumPy, as the reference computes them
+_KERNEL_QUANT_MODES = frozenset({QuantMode.BF16, QuantMode.INT8_AFFINE,
+                                 QuantMode.UINT8_AFFINE,
+                                 QuantMode.INT16_AFFINE})
+
+
+def _dequantize(val: np.ndarray, spec: QuantSpec, use_kernel: Optional[bool],
+                device) -> np.ndarray:
+    """One column's dequantize: NumPy ``dequantize`` when ``use_kernel`` is
+    False or the mode is not the kernel's, else the dequant kernel on
+    ``device`` with float64 arithmetic (NumPy's bits): a writable host copy
+    (decoded pages may be read-only views), H2D, one ``[N, 1]`` launch, D2H.
+    On ``"cpu"`` the plain version runs instead of the kernel."""
+    if use_kernel is False or spec.mode not in _KERNEL_QUANT_MODES:
+        return dequantize(val, spec)
+    from .. import resolve_device
+    from ..kernels.dequant import dequant
+    dev = resolve_device(device)
+    q = torch.from_numpy(np.array(val)).to(dev)
+    params = torch.tensor([spec.scale, spec.zero], dtype=torch.float64,
+                          device=dev)
+    out = dequant(q.view(-1, 1), params[:1], params[1:], torch.float32,
+                  device=dev)
+    return out.cpu().numpy().reshape(-1)
+
+
 def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
                  drop_deleted: bool = True, dequant: bool = True,
                  pages: Optional[Sequence[int]] = None,
                  align_raw: bool = False,
-                 masked_out: Optional[set] = None) -> dict:
+                 masked_out: Optional[set] = None,
+                 use_kernel: Optional[bool] = None, device=None) -> dict:
     """Decode one row group's columns via coalesced preads.
 
     ``pages`` restricts the read to a plan's surviving page ordinals (the
@@ -134,6 +165,9 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
     range group-wide). ``align_raw`` pads compact-deleted pages back to the
     raw row space (only meaningful with ``drop_deleted=False``); the default
     keeps physical page content, which ``verify_deleted`` audits.
+    ``use_kernel`` and ``device`` choose the dequantize route
+    (``_dequantize``): the dequant kernel on ``device`` (default ``cuda``)
+    unless ``use_kernel`` is False.
 
     Each stage is a distinct span (``decode.pread`` / ``decode.decode`` /
     ``decode.mask`` / ``decode.dequantize``) so traces and
@@ -193,7 +227,8 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
             if spec.mode != QuantMode.NONE:
                 with _trace.span("decode.dequantize", cat="decode",
                                  column=name):
-                    val = dequantize(np.asarray(val), spec)
+                    val = _dequantize(np.asarray(val), spec, use_kernel,
+                                      device)
         out[name] = val
     return out
 
@@ -320,7 +355,8 @@ def execute_group(reader: "BullionReader", group: int, *,
                   pages: Optional[Sequence[int]] = None, device=None
                   ) -> Optional[GroupResult]:
     """Decode + filter one row group with graceful degradation.
-    ``device`` is where the range filter runs (``eval_mask``).
+    ``device`` is where the dequantize (``decode_group``) and the range
+    filter (``eval_mask``) run.
 
     The inner pipeline (``_execute_group_once``) raises
     ``ShardCorruptError`` when decode-time verification quarantines a page.
@@ -436,7 +472,8 @@ def _execute_group_once(reader: "BullionReader", group: int, *,
         tbl = decode_group(reader, pred_cols, group,
                            drop_deleted=drop_deleted, dequant=True,
                            pages=pages, align_raw=not drop_deleted,
-                           masked_out=masked_out)
+                           masked_out=masked_out, use_kernel=use_kernel,
+                           device=device)
         sp = _trace.span("exec.filter", cat="exec", group=group)
         with sp:
             mask = eval_mask(predicate, tbl, use_kernel, device)
@@ -472,7 +509,8 @@ def _execute_group_once(reader: "BullionReader", group: int, *,
         ptbl = decode_group(reader, rest, group,
                             drop_deleted=drop_deleted, dequant=dequant,
                             pages=pages, align_raw=not drop_deleted,
-                            masked_out=masked_out)
+                            masked_out=masked_out, use_kernel=use_kernel,
+                            device=device)
         for name in rest:
             out[name] = ptbl[name] if full else _take(ptbl[name], local)
     return GroupResult(row_ids=raw_local, table=out)

@@ -36,8 +36,8 @@ class LogicalPlan:
     dequantize: bool = True
     drop_deleted: bool = True
     limit: Optional[int] = None                 # head(n)
-    use_kernel: Optional[bool] = None           # range-filter kernel: None = auto
-    device: Optional[object] = None             # where the filter runs (torch.device)
+    use_kernel: Optional[bool] = None           # dequant + filter kernels: None = auto
+    device: Optional[object] = None             # where they run (torch.device)
 
     def replace(self, **kw) -> "LogicalPlan":
         return replace(self, **kw)

@@ -23,6 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("flash_attention", "filter", "dequant", "bitunpack")   # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +72,9 @@ def load(name: str) -> Built:
     return _loaded[name]
 
 
-def load_all(names) -> dict[str, Built]:
-    """``load`` for several sources, one ``nvcc`` each, all started together."""
+def load_all(names=SOURCES) -> dict[str, Built]:
+    """``load`` for several sources (default: every kernel of the port), one
+    ``nvcc`` each, all started together."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
         return dict(zip(names, ex.map(load, names)))

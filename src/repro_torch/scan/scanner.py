@@ -258,7 +258,7 @@ class Scanner:
              use_kernel: Optional[bool] = None,
              device=None) -> Iterator[ScanBatch]:
         """Yield matching rows per surviving group. ``device`` is where the
-        range filter runs (default ``cuda``).
+        dequantize and the range filter run (default ``cuda``).
 
         ``columns`` are the payload columns materialized in each batch (the
         predicate's own columns are always available and included when

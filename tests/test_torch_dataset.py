@@ -2,10 +2,12 @@
 the JAX package's ``repro.dataset.dataset(p)`` on the same files.
 
 Tolerance: none. Row ids and every column are compared exactly, for each
-filter route (``use_kernel`` None, True, False). The data hold no subnormal
-values, where the reference's kernel route differs (see
-``tests/test_torch_filter.py``).
+route (``use_kernel`` None, True, False: the dequant and filter kernels'
+plain versions, or NumPy). The data hold no subnormal values, where the
+reference's kernel route differs (see ``tests/test_torch_filter.py``).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -34,7 +36,13 @@ def files(tmp_path_factory):
                                   seq_len=8, rows_per_group=1024)
     rng = np.random.default_rng(0)
     ref_core.delete_rows(deleted, np.sort(rng.choice(4096, 300, replace=False)))
-    return {"lm": lm, "ads": ads, "deleted": deleted}
+    quant, quant_deleted = str(d / "quant.bln"), str(d / "quant_deleted.bln")
+    for path in (quant, quant_deleted):
+        synthetic.write_quant_table(path, n_rows=4096, rows_per_group=1024)
+    ref_core.delete_rows(quant_deleted,
+                         np.sort(rng.choice(4096, 300, replace=False)))
+    return {"lm": lm, "ads": ads, "deleted": deleted, "quant": quant,
+            "quant_deleted": quant_deleted}
 
 
 def _pred(mod, kind):
@@ -47,6 +55,8 @@ def _pred(mod, kind):
         "or": (C("dense_0") > 1.0) | (C("dense_1") < -1.0),
         "in": mod.In("user_id", [3, 17, 64, 65, 200]),
         "ne": (C("label") != 0) & (C("dense_0") > -0.5),
+        "quant": (C("q_i8") > -0.5) & (C("q_i16") <= 2.0),
+        "quant_u8_bf16": (C("q_u8") >= 2.5) & (C("q_bf16") < 0.5),
     }[kind]
 
 
@@ -188,3 +198,72 @@ def test_device_reaches_the_filter(files, monkeypatch):
     ds.to_table(parallelism=2)
     assert seen and all(str(d) == "cpu" for d in seen)
     assert len(seen) == len(ds.physical_plan().tasks)
+
+
+QUANT_COLS = ["id", "q_i8", "q_u8", "q_i16", "q_bf16", "q_fp8", "q_fp16"]
+RAW_DTYPES = {"id": np.int64, "q_i8": np.int8, "q_u8": np.uint8,
+              "q_i16": np.int16, "q_bf16": np.uint16, "q_fp8": np.uint8,
+              "q_fp16": np.float16}
+
+
+@pytest.mark.parametrize("use_kernel", KERNEL_ROUTES)
+@pytest.mark.parametrize("dequantized", [True, False])
+@pytest.mark.parametrize("kind", ["quant", "quant_u8_bf16"])
+def test_quantized_reads(files, use_kernel, dequantized, kind):
+    """Every kind of quantized column (INT8/UINT8/INT16 affine, BF16, FP8,
+    FP16), predicates on the affine and BF16 columns: the filter and the
+    zone maps see the dequantized values, the payload is dequantized or
+    raw as asked."""
+    build = lambda d: d.select(QUANT_COLS).dequantized(dequantized)  # noqa: E731
+    port, ref = _pair(files["quant"], kind, use_kernel, build)
+    rows, table = _check(port, ref)
+    assert 0 < len(rows) < port.num_rows
+    _check(port, ref, parallelism=2, io_depth=2)
+    for name, col in table.items():
+        want = RAW_DTYPES[name] if not dequantized or name == "id" \
+            else np.float32
+        assert col.dtype == want, name
+
+
+@pytest.mark.parametrize("use_kernel", KERNEL_ROUTES)
+@pytest.mark.parametrize("drop_deleted", [True, False])
+def test_quantized_rows_deleted_by_the_reference(files, use_kernel,
+                                                 drop_deleted):
+    """Erased rows are stored 0 padded before the dequantize, so in the
+    raw row space (``drop_deleted(False)``) they read as ``zero``."""
+    build = lambda d: d.select(QUANT_COLS).drop_deleted(drop_deleted)  # noqa: E731
+    port, ref = _pair(files["quant_deleted"], "quant", use_kernel, build)
+    _check(port, ref)
+    plain = dataset(files["quant_deleted"], device="cpu").select(QUANT_COLS) \
+        .drop_deleted(drop_deleted)._with_kernel(use_kernel).to_table()
+    _same_tables(plain, ref_dataset.dataset(files["quant_deleted"])
+                 .select(QUANT_COLS).drop_deleted(drop_deleted).to_table())
+    assert len(plain["id"]) == (4096 - 300 if drop_deleted else 4096)
+
+
+@pytest.mark.parametrize("use_kernel", KERNEL_ROUTES)
+def test_dequantize_route_by_mode(files, monkeypatch, use_kernel):
+    """Only BF16 and the affine modes reach ``dequant`` (one ``[N, 1]``
+    call a column and row group, float64 scale and zero, on the plan's
+    device); FP8 and FP16 never do, and ``use_kernel=False`` sends none."""
+    dq = importlib.import_module("repro_torch.kernels.dequant")
+    real, seen = dq.dequant, []
+
+    def spy(q, scale, zero, out_dtype, *, device=None):
+        seen.append((q.dtype, tuple(q.shape), scale.dtype, str(device)))
+        return real(q, scale, zero, out_dtype, device=device)
+
+    monkeypatch.setattr(dq, "dequant", spy)
+    ds = dataset(files["quant"], device="cpu").select(QUANT_COLS) \
+        .where(_pred(scan, "quant"))._with_kernel(use_kernel)
+    ds.to_table()
+    if use_kernel is False:
+        assert seen == []
+        return
+    groups = len(ds.physical_plan().tasks)
+    # per group: q_i8 and q_i16 for the predicate, q_u8 and q_bf16 after it
+    want = [torch_dtype for _ in range(groups) for torch_dtype in
+            ("torch.int8", "torch.int16", "torch.uint8", "torch.uint16")]
+    assert sorted(str(d) for d, *_ in seen) == sorted(want)
+    assert all(shape == (1024, 1) and str(s) == "torch.float64"
+               and dev == "cpu" for _, shape, s, dev in seen)

@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: the flash-attention and range-filter
-kernels against their plain versions, the smoke model on CUDA against the
-CPU, and a predicate read on CUDA against the CPU. They skip where CUDA is
-absent. On an H100:
+"""Tests of the port that need the card: the flash-attention, range-filter,
+dequant and BP32-unpack kernels against their plain versions, the smoke
+model on CUDA against the CPU, and predicate and quantized reads on CUDA
+against the CPU. They skip where CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -11,8 +11,12 @@ import pytest
 import torch
 
 import repro_torch.configs as configs
-from repro_torch.data import write_ads_table
+from repro_torch.core.quantization import (QuantMode, QuantSpec,
+                                           affine_spec_for, dequantize)
+from repro_torch.data import write_ads_table, write_quant_table
 from repro_torch.dataset import dataset
+from repro_torch.kernels.bitunpack import bitunpack, bitunpack_ref, pack_bp32
+from repro_torch.kernels.dequant import dequant, dequant_ref
 from repro_torch.kernels.filter import range_mask, range_mask_ref
 from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  flash_attention)
@@ -135,3 +139,93 @@ def test_predicate_read_on_cuda_matches_cpu(cuda, tmp_path):
         .where(pred)._with_kernel(False).to_table()
     for k in want:
         assert np.array_equal(got[k], want[k])
+
+
+def _same_bits(a, b):
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arith", [torch.float32, torch.float64])
+@pytest.mark.parametrize("code", [np.int8, np.uint8, np.int16, np.uint16])
+@pytest.mark.parametrize("shape", [(130, 70), (65539, 1), "transposed"])
+def test_dequant_bit_identical(cuda, code, arith, out_dtype, shape):
+    rng = np.random.default_rng(11)
+    info = np.iinfo(code)
+    if shape == "transposed":
+        full = rng.integers(info.min, info.max + 1, (260, 600)).astype(code)
+        q = torch.from_numpy(full).to(cuda).t()[::3, 4:]
+    else:
+        q = torch.from_numpy(rng.integers(info.min, info.max + 1, shape)
+                             .astype(code)).to(cuda)
+    C_ = q.shape[1]
+    s = torch.from_numpy(rng.uniform(1e-3, 1.0, C_)).to(cuda, arith)
+    z = torch.from_numpy(rng.normal(size=C_)).to(cuda, arith)
+    before = dequant.launches
+    got = dequant(q, s, z, out_dtype)
+    torch.cuda.synchronize()
+    assert dequant.launches == before + 1
+    assert _same_bits(got, dequant_ref(q, s, z, out_dtype))
+    assert _same_bits(got.cpu(), dequant_ref(q.cpu(), s.cpu(), z.cpu(),
+                                             out_dtype))
+
+
+@pytest.mark.parametrize("mode,code", [(QuantMode.INT8_AFFINE, np.int8),
+                                       (QuantMode.UINT8_AFFINE, np.uint8),
+                                       (QuantMode.INT16_AFFINE, np.int16),
+                                       (QuantMode.BF16, np.uint16)])
+def test_dequant_f64_every_code_equals_dequantize(cuda, mode, code):
+    x = np.random.default_rng(12).normal(size=10_000)
+    spec = QuantSpec(mode) if mode == QuantMode.BF16 \
+        else affine_spec_for(x, mode)
+    info = np.iinfo(code)
+    codes = np.arange(info.min, info.max + 1).astype(code)
+    params = torch.tensor([spec.scale, spec.zero], dtype=torch.float64,
+                          device=cuda)
+    got = dequant(torch.from_numpy(codes).to(cuda).view(-1, 1), params[:1],
+                  params[1:], torch.float32)
+    want = dequantize(codes, spec)
+    assert np.array_equal(got.cpu().numpy().reshape(-1).view(np.uint32),
+                          want.view(np.uint32))
+
+
+@pytest.mark.parametrize("width", [1, 7, 11, 16, 31, 32])
+@pytest.mark.parametrize("n", [1, 31, 8192 + 7 * 32, 100_003])
+def test_bitunpack_exact(cuda, width, n):
+    rng = np.random.default_rng(width * 7 + n)
+    vals = rng.integers(0, 2**width, n, dtype=np.uint64).astype(np.uint32)
+    planes = pack_bp32(vals, width)
+    before = bitunpack.launches
+    got = bitunpack(planes, width, n)
+    torch.cuda.synchronize()
+    assert bitunpack.launches == before + 1
+    assert np.array_equal(got.cpu().numpy(), vals)
+    pd = torch.from_numpy(planes).to(cuda)
+    assert torch.equal(got.view(torch.int32),
+                       bitunpack_ref(pd, width)[:n].view(torch.int32))
+
+
+def test_bitunpack_strided_planes(cuda):
+    rng = np.random.default_rng(13)
+    big = rng.integers(0, 2**32, (4096, 32), dtype=np.uint64).astype(np.uint32)
+    view = torch.from_numpy(big).to(cuda)[:, :12]
+    got = bitunpack(view, 12, 4096 * 32 - 5)
+    want = bitunpack_ref(view.cpu(), 12)[:4096 * 32 - 5]
+    assert np.array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_quantized_read_on_cuda_matches_cpu(cuda, tmp_path):
+    path = str(tmp_path / "quant.bln")
+    write_quant_table(path, n_rows=8192, rows_per_group=2048)
+    cols = ["id", "q_i8", "q_u8", "q_i16", "q_bf16", "q_fp8", "q_fp16"]
+    pred = (C("q_i8") > -0.5) & (C("q_i16") <= 2.0)
+    ds = dataset(path, device="cuda").select(cols).where(pred)
+    before = dequant.launches
+    got = ds.to_table(parallelism=2)
+    assert dequant.launches == before + 4 * len(ds.physical_plan().tasks)
+    want = dataset(path, device="cpu").select(cols).where(pred) \
+        ._with_kernel(False).to_table()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert np.array_equal(got[k].view(np.uint8), want[k].view(np.uint8))

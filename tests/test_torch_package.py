@@ -150,10 +150,56 @@ def test_range_mask_defaults_to_cuda():
         range_mask(cols, bound, bound)
 
 
+def test_dequant_and_bitunpack_default_to_cuda():
+    from repro_torch.kernels.bitunpack import bitunpack
+    from repro_torch.kernels.dequant import dequant
+    q = torch.zeros((4, 2), dtype=torch.int8)
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dequant(q, torch.ones(2), torch.zeros(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bitunpack(np.zeros((1, 3), np.uint32), 3)
+
+
 def test_kernels_build_without_fast_math():
-    """Flushing subnormals would let x = 0 pass ``x > 0`` (lo = 1e-45)."""
+    """Flushing subnormals would let x = 0 pass ``x > 0`` (lo = 1e-45) in
+    the filter, and would flush subnormal bf16 patterns in dequant."""
     from repro_torch.kernels._build import NVCC_FLAGS
     flags = " ".join(NVCC_FLAGS)
     assert "--use_fast_math" not in flags and "-use_fast_math" not in flags
     assert "-ftz=true" not in flags and "--ftz=true" not in flags
     assert "sm_90a" in flags
+
+
+def _code(src: str) -> str:
+    """A CUDA source without its comments."""
+    import re
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+
+
+def test_every_source_is_built():
+    """``load_all`` builds every csrc/*.cu with the flags above, and no
+    source asks for fast math or flushing itself."""
+    from repro_torch.kernels._build import CSRC, SOURCES
+    assert sorted(SOURCES) == sorted(p.stem for p in CSRC.glob("*.cu"))
+    assert {"dequant", "bitunpack"} <= set(SOURCES)
+    for name in SOURCES:
+        code = _code((CSRC / f"{name}.cu").read_text())
+        assert "fast_math" not in code and "ftz" not in code, name
+
+
+def test_dequant_affine_route_cannot_be_contracted():
+    """An FMA would change the float64 sum ``q * scale + zero`` of some
+    codes by one ulp, and the read path must give NumPy's bits: the
+    multiply and the add are round-to-nearest intrinsics, which nvcc never
+    contracts (or the build passes -fmad=false)."""
+    from repro_torch.kernels._build import CSRC, NVCC_FLAGS
+    code = _code((CSRC / "dequant.cu").read_text())
+    if "-fmad=false" in NVCC_FLAGS:
+        return
+    for fn in ("__dmul_rn", "__dadd_rn", "__fmul_rn", "__fadd_rn",
+               "__double2float_rn"):
+        assert fn + "(" in code, fn
+    assert "fma" not in code.lower()
+    affine = code[code.index("affine("):code.index("template")]
+    assert "*" not in affine and "+" not in affine, affine
