@@ -18,7 +18,9 @@ each:
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 14 cases
+  3. kernels        -- flash attention against its plain version, 16 cases,
+                       each through "auto" and through every body that
+                       takes it (wgmma, mma for bf16; simt for f32)
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -32,16 +34,20 @@ each:
                           then the unpack kernel against its plain version
                           on the card and NumPy on the CPU, exactly: widths
                           1-32 x n in {1, 31, 32, 8192, 8416, 2**24}
-  7. serve          -- the serving path, its launch count, and the kernel
-                       against its plain version on the q, k, v of each of
-                       the 16 layers
+  7. serve          -- the serving path, its launch count (16 of the wgmma
+                       body, none of the others), and the kernel against
+                       its plain version on the q, k, v of each of the 16
+                       layers
   8. profile        -- device time by kernel over one prefill and 8 decode
                        steps
   9. logits         -- at full width and one layer: prefill logits through
                        the kernel vs the plain version, decode vs a fresh
                        prefill
- 10. times          -- flash attention at the serving shape against its
-                       bound, its plain version and the PyTorch library call
+ 10. times          -- flash attention at the serving shape: the wgmma and
+                       mma bodies and the PyTorch library call in device
+                       time, warm and cold in L2, against the bound (bytes,
+                       products, and exp2 at the MUFU rate) and the plain
+                       version; the event time of back-to-back calls
  11. scan           -- the read path: launch counts per scan, results equal
                        to the NumPy route, serially and on 4 threads, scan
                        times, and the time split (host stages, device copies
@@ -127,9 +133,13 @@ def _launch_counters() -> dict:
 
 
 def zero_counts() -> None:
-    """Every kernel's launch count to 0, just before a main path runs."""
+    """Every kernel's launch count to 0 (flash attention's by body too),
+    just before a main path runs."""
     for fn in _launch_counters().values():
         fn.launches = 0
+    from repro_torch.kernels.flash_attention import flash_attention
+    for body in flash_attention.launches_by_body:
+        flash_attention.launches_by_body[body] = 0
 
 
 def counts() -> dict:
@@ -168,7 +178,7 @@ def phase_build() -> None:
     built = _build.load_all()
     for name, b in built.items():
         regs = [ln.split("info    : ")[-1] for ln in b.log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln or "wgmma" in ln]
         emit("build", source=f"src/repro_torch/csrc/{name}.cu",
              build_s=b.build_s, ptxas=regs)
     emit("build", all_s=time.perf_counter() - t0)
@@ -204,11 +214,30 @@ def kernel_cases() -> list[dict]:
         ]
     cases.append(dict(base, B=2, H=4, Hkv=4, S=256, D=64,
                       dtype=torch.bfloat16, layout="bshd"))     # Hkv = H
+    cases.append(dict(base, B=2, H=8, Hkv=2, S=384, D=128,
+                      dtype=torch.bfloat16, layout="bshd"))     # D = 128, GQA
+    cases.append(dict(base, B=1, H=4, Hkv=1, S=200, D=128,
+                      dtype=torch.bfloat16, layout="bshd"))     # ragged S
     return cases
 
 
+def _bodies(q, k, v) -> tuple[str, list]:
+    """The body "auto" takes for these [B, S, H, D] inputs (and a fresh
+    contiguous output), and every body that takes them."""
+    from repro_torch.kernels.flash_attention.kernel import (BODIES,
+                                                            select_body, takes)
+    B, S, H, D = q.shape
+    out_strides = [S * H * D, H * D, D]    # torch.empty: 512-byte aligned
+    strides = [st for x in (q, k, v) for st in x.stride()[:3]] + out_strides
+    ptrs = [x.data_ptr() for x in (q, k, v)] + [0]
+    return (select_body(q.dtype, D, strides, ptrs),
+            [b for b in BODIES if takes(b, q.dtype, D, strides, ptrs)])
+
+
 def phase_kernels(seed: int) -> float:
-    """Kernel vs attention_ref on the card; returns the serving-shape error."""
+    """The kernel vs attention_ref on the card, each case through "auto"
+    and through every body that takes it; returns the wgmma body's error
+    at the serving shape."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
     serve_err = None
@@ -218,22 +247,38 @@ def phase_kernels(seed: int) -> float:
                           c["dtype"], c["layout"])
         kw = dict(causal=c["causal"], window=c["window"], kv_len=c["kv_len"])
         if c["layout"] == "bshd":
-            out = attention(q, k, v, **kw).transpose(1, 2)
             ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), **kw)
+            qs, ks, vs = q, k, v
         else:
-            out = flash_attention(q, k, v, **kw)
             ref = attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+            qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        auto_body, bodies = _bodies(qs, ks, vs)
+        if c["dtype"] == torch.bfloat16 and c["D"] % 8 == 0:
+            check(auto_body == "wgmma", f"kernel case {i}: auto takes "
+                  f"{auto_body}, expected wgmma (aligned bf16, D % 8 == 0)")
         tol = TOL[c["dtype"]]
-        emit("kernels", case=i, shape=[c["B"], c["H"], c["Hkv"], c["S"], c["D"]],
-             dtype=str(c["dtype"]).replace("torch.", ""), layout=c["layout"],
-             **kw, max_abs_err=err, tol=tol)
-        check(math.isfinite(err) and err < tol,
-              f"kernel case {i} error {err} >= {tol}")
-        if i == 0:
-            serve_err = err
+        for body in ["auto", *bodies]:
+            before = dict(flash_attention.launches_by_body)
+            if c["layout"] == "bshd":
+                out = attention(q, k, v, body=body, **kw).transpose(1, 2)
+            else:
+                out = flash_attention(q, k, v, body=body, **kw)
+            torch.cuda.synchronize()
+            ran = [b for b, n in flash_attention.launches_by_body.items()
+                   if n != before[b]]
+            err = (out.float() - ref.float()).abs().max().item()
+            emit("kernels", case=i,
+                 shape=[c["B"], c["H"], c["Hkv"], c["S"], c["D"]],
+                 dtype=str(c["dtype"]).replace("torch.", ""),
+                 layout=c["layout"], **kw, body=body, ran=ran,
+                 max_abs_err=err, tol=tol)
+            check(ran == [auto_body if body == "auto" else body],
+                  f"kernel case {i} body {body}: launched {ran}")
+            check(math.isfinite(err) and err < tol,
+                  f"kernel case {i} body {body}: error {err} >= {tol}")
+            if i == 0 and body == "wgmma":
+                serve_err = err
     return serve_err
 
 
@@ -302,10 +347,14 @@ def phase_serve(seed: int):
     out = eng.generate(prompts, max_new_tokens=SERVE_NEW)      # the main path
     launched = counts()
     launches = launched["flash_attention"]
+    by_body = dict(flash_attention.launches_by_body)
     check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
                            dequant=0, bitunpack=0),
           f"serving launched {launched}, expected flash_attention "
           f"{cfg.n_layers} times and no other kernel")
+    check(by_body == dict(simt=0, mma=0, wgmma=cfg.n_layers),
+          f"serving launched the bodies {by_body}, expected wgmma "
+          f"{cfg.n_layers} times and no other body")
     gen = out["tokens"]
     check(gen.shape == (SERVE_B, SERVE_NEW) and
           bool(((gen >= 0) & (gen < cfg.vocab)).all()), "generated tokens")
@@ -333,6 +382,7 @@ def phase_serve(seed: int):
          decode_bytes_per_step=param_bytes + cache_bytes,
          decode_tok_per_s_bound=SERVE_B / decode_bound_s,
          flash_launches_per_prefill=launches,
+         flash_launches_by_body=by_body,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          first_tokens=gen[0, :8].tolist())
 
@@ -441,7 +491,21 @@ def phase_profile(model, prompts) -> None:
              top=table)
 
 
+def _mufu_ex2_per_s() -> float:
+    """exp2 a second at the card's top SM clock: 16 a clock on each SM (the
+    special-function units; Hopper tuning guide)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * float(mhz) * 1e6
+
+
 def phase_times(seed: int) -> dict:
+    """Flash attention at the serving shape: the wgmma body (the main
+    path's) against its bound, its plain version and the library call, and
+    the mma body beside it, all in device time, warm and cold in L2."""
     from repro_torch.kernels.flash_attention import attention, attention_ref
     c = SERVE_CASE
     B, H, Hkv, S, D = c["B"], c["H"], c["Hkv"], c["S"], c["D"]
@@ -449,26 +513,27 @@ def phase_times(seed: int) -> dict:
                       c["dtype"], "bshd")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = median_ms(lambda: attention(q, k, v, causal=True))
-    plain_ms = median_ms(lambda: attention_ref(qt, kt, vt, causal=True))
-    library_ms = median_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True))
-    ms2 = median_ms(lambda: attention(q, k, v, causal=True))
     # least time for the same work: each input read once, the output written
-    # once; the causal products of the live (query, key) pairs of this run
+    # once; the causal products of the live (query, key) pairs of this run.
+    # exp_ms, one exp2 a live score at the MUFU rate, is printed beside it.
     size = q.element_size()
     bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * size
     live_pairs = B * H * S * (S + 1) // 2
     flops = 4 * D * live_pairs
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    row = dict(ms=min(ms, ms2), plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops
-               else "operations")
+    row, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=True, body="wgmma"),
+        lambda: attention_ref(qt, kt, vt, causal=True),
+        bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")
+    mma_ms, mma_cold_ms = _warm_cold_ms(
+        lambda: attention(q, k, v, causal=True, body="mma"), flush)
     emit("times", shape=[B, H, Hkv, S, D], dtype="bfloat16", causal=True,
-         ms_runs=[ms, ms2], bytes=bytes_moved, flops=flops,
-         bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
-         roofline_share=bound_ms / row["ms"], **row)
+         body="wgmma", **extra, live_scores=live_pairs,
+         exp_ms=live_pairs / _mufu_ex2_per_s() * 1e3,
+         mma_ms=mma_ms, mma_cold_l2_ms=mma_cold_ms,
+         mma_over_wgmma=mma_ms / row["ms"],
+         wgmma_over_library=row["ms"] / row["library_ms"], **row)
     return row
 
 
@@ -883,11 +948,10 @@ def phase_scan(seed: int) -> tuple[int, int]:
     return main_launches["range_mask"], main_launches["dequant"]
 
 
-def _device_ms_per_call(fn, calls: int = 50, kernel: str = "") -> float:
-    """Device time of one call of fn: the profiler's device-kernel time over
-    `calls` calls (only kernels whose name holds `kernel`), divided by
-    `calls`. The host's launch path, which exceeds a few-microsecond kernel,
-    is left out."""
+def _device_us(fn, calls: int = 50) -> dict:
+    """Device time (us, over `calls` calls of fn) of each kernel that fn
+    launches, from the profiler's device-kernel records. The host's launch
+    path, which exceeds a few-microsecond kernel, is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
@@ -898,31 +962,46 @@ def _device_ms_per_call(fn, calls: int = 50, kernel: str = "") -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and kernel in e.key
-                   and e.self_device_time_total > 0)
-    return total_us / 1e3 / calls
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
-def _time_kernel(fn, plain, *, kernel: str, bytes_moved: int, ops: int,
-                 op_rate: float, library=None) -> tuple[dict, dict]:
-    """A kernel's device time a call over 50 calls, twice with the inputs
-    warm in L2 and once cold (a 128 MB buffer written between calls), beside
-    its bound, its plain version and the library call (None where no single
-    PyTorch call computes the function). Returns the row of the kernels line
-    and the other fields to print."""
-    ms = _device_ms_per_call(fn)
-    plain_ms = _device_ms_per_call(plain)
-    library_ms = _device_ms_per_call(library) if library else None
-    ms2 = _device_ms_per_call(fn)
-    wall_ms = median_ms(fn)
-    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")   # > L2
+def _device_ms_per_call(fn, calls: int = 50) -> float:
+    """Device time of one call of fn, over `calls` calls."""
+    return sum(_device_us(fn, calls).values()) / 1e3 / calls
+
+
+def _warm_cold_ms(fn, flush, calls: int = 50) -> tuple[float, float]:
+    """Device ms a call of fn with its inputs warm in L2, and cold: `flush`
+    (larger than L2) written before each call, its kernel left out by
+    counting only the kernels that fn launched warm."""
+    warm = _device_us(fn, calls)
 
     def cold():
         flush.zero_()
         fn()
 
-    cold_ms = _device_ms_per_call(cold, kernel=kernel)
+    cold_us = _device_us(cold, calls)
+    return (sum(warm.values()) / 1e3 / calls,
+            sum(us for key, us in cold_us.items() if key in warm) / 1e3 / calls)
+
+
+def _time_kernel(fn, plain, *, bytes_moved: int, ops: int, op_rate: float,
+                 library=None) -> tuple[dict, dict]:
+    """A kernel's device time a call over 50 calls, twice with the inputs
+    warm in L2 and once cold (a 128 MB buffer written between calls), beside
+    its bound, its plain version and the library call (None where no single
+    PyTorch call computes the function; warm and cold like the kernel), and
+    the event time of back-to-back calls. Returns the row of the kernels
+    line and the other fields to print."""
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")   # > L2
+    ms, cold_ms = _warm_cold_ms(fn, flush)
+    plain_ms = _device_ms_per_call(plain)
+    library_ms, library_cold_ms = (_warm_cold_ms(library, flush) if library
+                                   else (None, None))
+    ms2 = _device_ms_per_call(fn)
+    wall_ms = median_ms(fn)
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / op_rate
     bound_ms = max(t_bytes, t_ops) * 1e3
     row = dict(ms=min(ms, ms2), plain_ms=plain_ms, library_ms=library_ms,
@@ -930,6 +1009,7 @@ def _time_kernel(fn, plain, *, kernel: str, bytes_moved: int, ops: int,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     extra = dict(ms_runs=[ms, ms2], l2="warm", cold_l2_ms=cold_ms,
                  cold_l2_roofline_share=bound_ms / cold_ms,
+                 library_cold_l2_ms=library_cold_ms,
                  wall_ms_per_call_back_to_back=wall_ms, bytes=bytes_moved,
                  ops=ops, bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
                  roofline_share=bound_ms / row["ms"])
@@ -946,8 +1026,8 @@ def phase_filter_times(seed: int) -> dict:
     lo, hi = (torch.from_numpy(b).cuda() for b in _filter_bounds(rng, C, "gt0"))
     row, extra = _time_kernel(
         lambda: range_mask(x, lo, hi), lambda: range_mask_ref(x, lo, hi),
-        kernel="range_mask", bytes_moved=(4 * C + 1) * N,
-        ops=2 * C * N, op_rate=F32_FLOP_PER_S)      # two compares per value
+        bytes_moved=(4 * C + 1) * N, ops=2 * C * N,
+        op_rate=F32_FLOP_PER_S)                     # two compares per value
     emit("filter_times", C=C, N=N, **extra, **row)
     return row
 
@@ -987,7 +1067,7 @@ def phase_dequant_times(seed: int) -> dict:
             else F32_FLOP_PER_S
         row, extra = _time_kernel(
             lambda: dequant(q, s, z, out_dtype),
-            lambda: dequant_ref(q, s, z, out_dtype), kernel="dequant_kernel",
+            lambda: dequant_ref(q, s, z, out_dtype),
             bytes_moved=q.numel() * (q.element_size() + out_size)
             + (0 if bits_only else 2 * C * s.element_size()),
             ops=ops, op_rate=rate,
@@ -1016,7 +1096,7 @@ def phase_bitunpack_times(seed: int) -> dict:
                                   .astype(np.uint32)).cuda()
         row, extra = _time_kernel(
             lambda: bitunpack(planes, w, n),
-            lambda: bitunpack_ref(planes, w), kernel="bitunpack_kernel",
+            lambda: bitunpack_ref(planes, w),
             bytes_moved=4 * (planes.numel() + n), ops=2 * n * w,
             op_rate=F32_FLOP_PER_S)
         emit("bitunpack_times", n=n, width=w, **extra, **row)
@@ -1048,7 +1128,7 @@ def main(argv=None) -> int:
     dequant_row = phase_dequant_times(args.seed)
     bitunpack_row = phase_bitunpack_times(args.seed)
     print(json.dumps({"kernels": [
-        dict(name="flash_attention", route="cuda",
+        dict(name="flash_attention", route="cuda", body="wgmma",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:91",
              launches=launches, max_abs_err=serve_err, **row),

@@ -15,22 +15,43 @@
 //
 // What bounds it: at the serving shape (B=8, H=32, Hkv=8, S=512, D=64, bf16,
 // causal) the function must move 42 MB (q and o 16.8 MB each, k and v 4.2 MB
-// each), 12.5 us at 3.35 TB/s, and do 8.6 GFLOP of causal products, 8.7 us at
-// the bf16 tensor-core peak: memory-bound, barely. So the design reads each
-// q row once, each K/V tile once per BQ-row block from L2 (K/V of one head are
-// shared by H/Hkv heads and BQ-row blocks), and keeps scores and
-// probabilities in registers and shared memory, never in device memory.
+// each), 12.5 us at 3.35 TB/s; do 8.6 GFLOP of causal products, 8.7 us at
+// the bf16 tensor-core peak; and take one exp2 for each of the 33.6 M live
+// scores, about 8 us at 16 a clock on each of the 132 SMs (1.98 GHz). The
+// three floors are close, so copies, products and the softmax must overlap.
 //
-// Two bodies:
-//   * flash_fwd_mma (bf16, D <= 128): mma.sync m16n8k16 tensor-core products,
-//     one warp per 16 query rows, P cast to bf16 before the PV product (as
-//     the reference casts probabilities to v.dtype).
+// Three bodies, chosen by the caller (kernels/flash_attention/kernel.py):
+//   * flash_fwd_wgmma (bf16; pointers 16-byte aligned, batch/seq/head
+//     strides multiples of 8 elements, D a multiple of 8 up to 128: TMA's
+//     rules). A block owns 128 query rows, two warpgroups of 64. Bytes: TMA
+//     copies (Q once, K and V through a two-stage ring with a full mbarrier
+//     a stage and tensor), issued by one thread, so no thread spends
+//     registers or instructions on loads and tile j+1 lands while tile j
+//     is multiplied; the tensor maps zero-fill past S and D, so ragged
+//     edges need no masked loads; 128-row blocks re-read K/V from L2 half
+//     as often as 64-row ones. No producer warp: its registers would keep
+//     the second block off the SM (measured slower). Products: wgmma
+//     m64n128k16 for S = Q K^T with both operands in 128-byte-swizzled
+//     shared memory, and m64n64k16 for O += P V with P from registers and V
+//     read MN-major through the descriptor's transpose bit (no copy of V^T).
+//     exp: the softmax stays in the exp2 domain with the scale folded into
+//     one FMA a score, masks only the tiles that hold a diagonal, the kv_len
+//     edge or the window edge, and four warpgroups an SM (two blocks at
+//     D <= 64) let one warpgroup's exp2 run under another's products.
+//     Causal q-tiles are issued heaviest first.
+//   * flash_fwd_mma (bf16, any other layout, e.g. D = 100): mma.sync
+//     m16n8k16 tensor-core products, one warp per 16 query rows, loads
+//     through registers.
 //   * flash_fwd_simt (f32): products in f32 FMA, so an f32 call stays within
 //     f32 rounding of the reference (tensor-core TF32 would not).
+// The tensor-core bodies cast P to bf16 before the PV product, as the
+// reference casts probabilities to v.dtype.
 //
-// C entry point flash_attention_fwd returns cudaGetLastError() after the
+// C entry point flash_attention_fwd returns cudaErrorInvalidValue when the
+// body asked for cannot take the call, else cudaGetLastError() after the
 // launch; the Python wrapper raises on anything but 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -435,7 +456,473 @@ cudaError_t launch_mma(const Args& a, int vec8, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Hopper body: TMA ring with mbarriers, wgmma (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int W_BK = 128;        // keys per K/V tile
+constexpr int W_STAGES = 2;      // depth of the K/V ring
+constexpr int W_KVBOX = W_BK * 128;  // bytes of a box of K or V: 64 bf16 a row
+
+// One configuration of the body. NB: 64-column boxes of a row, 1 for
+// D <= 64, 2 for D <= 128. NC: warpgroups of 64 query rows each; a block
+// owns 64 NC query rows of one (batch, head), and its warpgroups share each
+// K/V tile. Two blocks share an SM at D <= 64 (80 KB of shared memory and
+// at most 128 registers a thread each), so one block's loads and epilogue
+// run under the other's products; one block fills it at D = 128 (160 KB).
+template <int NB, int NC>
+struct WCfg {
+  static constexpr int bq = 64 * NC;                 // query rows per block
+  static constexpr int threads = NC * 128;
+  static constexpr int min_blocks = NB == 1 ? 2 : 1; // resident per SM
+  static constexpr int qbox = bq * 128;              // bytes of a box of Q
+  // Shared memory from a 1024-byte-aligned base (the 128-byte swizzle
+  // repeats every 8 rows of 128 bytes): Q [NB boxes], K [stages][NB],
+  // V [stages][NB], then the barriers.
+  static constexpr int q = 0;
+  static constexpr int k = q + NB * qbox;
+  static constexpr int v = k + W_STAGES * NB * W_KVBOX;
+  static constexpr int bar = v + W_STAGES * NB * W_KVBOX;
+  static constexpr int n_bar = 1 + 2 * W_STAGES;  // q; k full, v full
+  static constexpr int smem = bar + 8 * n_bar + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits for the phase of the given parity to complete. A copy or arrival
+// that never comes traps after some 2**32 clocks (about 2 s): the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+// One box of a rank-4 map over (D, S, heads, B) into shared memory; the
+// barrier counts its bytes in when they land.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s),
+         "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout type 1
+// (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (Q or K: rows of 64 dims, 128 bytes): 8-row groups 1024
+// bytes apart; the leading offset is unused within the swizzle width.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return wg_desc(addr, 16, 1024);
+}
+
+// MN-major operand (V: a row per key, the 64 dims contiguous): 8-key groups
+// 1024 bytes apart. The tile is one swizzle width wide (N = 64), so the
+// offset between swizzle-wide column blocks is never taken; both fields
+// hold the 8-key stride.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return wg_desc(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until every committed group of this warpgroup has completed.
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous window between a wgmma and its wait.
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S[64 x 128] (+)= Q[64 x 16] K[128 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x 64] += P[64 x 16] V[16 x 64]: P as bf16 A fragments in registers,
+// V MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A rank-4 map over (D, S, heads, B) of a [B, S, heads, D] bf16 tensor at
+// the caller's element strides; boxes of 64 dims x `rows` rows, 128-byte
+// swizzle; rows past S and dims past D read as zero.
+bool encode_map(CUtensorMap* map, const void* ptr, int rows, int D, int S,
+                int heads, int B, int ss, int sh, int sb) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Grid (H, B, q-tiles); q-tiles run from the last (the heaviest when causal)
+// to the first. Thread 0 issues every copy: Q once and the first W_STAGES
+// K/V tiles at the start, then, once all warpgroups are done with tile j
+// (a named barrier), tile j + W_STAGES into the stage tile j leaves free.
+// A thread waits for a tile on the stage's full barriers, whose phase
+// flips when the TMA bytes land.
+template <int NB, int NC>
+__global__ void __launch_bounds__(WCfg<NB, NC>::threads,
+                                  WCfg<NB, NC>::min_blocks)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, Args a) {
+  using C = WCfg<NB, NC>;
+  extern __shared__ __align__(1024) unsigned char w_smem_raw[];
+  const uint32_t raw = smem_u32(w_smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  unsigned char* sm = w_smem_raw + pad;
+  const uint32_t base = raw + pad;
+  const uint32_t sQ = base + C::q, sK = base + C::k, sV = base + C::v;
+  const uint32_t bar_q = base + C::bar;
+  auto k_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bar_q + 8u * (1 + W_STAGES + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::bq;
+  const int hk = h / (a.H / a.Hkv);
+  int kv_start, kv_end;
+  kv_range(a, q0, C::bq, W_BK, &kv_start, &kv_end);
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + W_BK - 1) / W_BK : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int it) {
+    const int st = it % W_STAGES, kt = kv_start + it * W_BK;
+    mbar_expect_tx(k_full(st), NB * W_KVBOX);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      tma_load(sK + (st * NB + j) * W_KVBOX, &tk, k_full(st), 64 * j, kt, hk, b);
+    mbar_expect_tx(v_full(st), NB * W_KVBOX);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      tma_load(sV + (st * NB + j) * W_KVBOX, &tv, v_full(st), 64 * j, kt, hk, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, NB * C::qbox);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      tma_load(sQ + j * C::qbox, &tq, bar_q, 64 * j, q0, h, b);
+    for (int it = 0; it < W_STAGES && it < n_tiles; ++it) load_kv(it);
+  }
+
+  // Thread layout of a wgmma accumulator: warp wq of the warpgroup holds
+  // rows 16 wq + g and 16 wq + g + 8 (g = lane / 4); element i of a thread
+  // is row (i >> 1) & 1, column 8 (i >> 2) + 2 t + (i & 1) (t = lane % 4),
+  // so a row lives in the 4 threads of a quad.
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  const int wr0 = q0 + 64 * wg;            // first query row of the warpgroup
+  const int row0 = wr0 + 16 * wq + g;      // this thread's rows: row0, row0 + 8
+  const uint32_t sQw = sQ + 64 * 128 * wg;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];  // row0, row0 + 8
+  float s[64], o[NB][32];
+  uint32_t pa[32];  // P as the bf16 A fragments of the PV product
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % W_STAGES, kt = kv_start + it * W_BK;
+    const uint32_t par = (it / W_STAGES) & 1;
+    mbar_wait(k_full(st), par);
+    wg_pin(s);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_qk(s, desc_kmajor(sQw + j * C::qbox + 32 * ks),
+                 desc_kmajor(sK + (st * NB + j) * W_KVBOX + 32 * ks),
+                 (j | ks) != 0);
+    wg_commit();
+    wg_wait();
+    wg_pin(s);
+    // Masks only the halves of the tile (keys kt .. kt + 63, kt + 64 ..
+    // kt + 127: elements 0-31, 32-63) where this warpgroup's rows meet the
+    // diagonal, the kv_len (or S) edge, or the window's far edge. Live keys
+    // of row r are kt + 2 t + c for c in [lo[r], hi[r]], c the element's
+    // column offset (a constant of the unrolled loop).
+    auto edge_at = [&](int k) {
+      return k + 64 > a.kv_lim || (a.causal && k + 63 > wr0) ||
+             (a.window > 0 && wr0 + 63 - k >= a.window);
+    };
+    const bool edge0 = edge_at(kt), edge1 = edge_at(kt + 64);
+    if (edge0 || edge1) {
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r, k0 = kt + 2 * t;
+        hi[r] = (a.causal ? min(row, a.kv_lim - 1) : a.kv_lim - 1) - k0;
+        lo[r] = a.window > 0 ? row - a.window + 1 - k0 : -1;
+      }
+      auto mask = [&](int i, bool window) {
+        const int c = 8 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+        if (c > hi[r] || (window && c < lo[r])) s[i] = -INFINITY;
+      };
+      if (a.window > 0) {
+        if (edge0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) mask(i, true);
+        }
+        if (edge1) {
+#pragma unroll
+          for (int i = 32; i < 64; ++i) mask(i, true);
+        }
+      } else {
+        if (edge0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) mask(i, false);
+        }
+        if (edge1) {
+#pragma unroll
+          for (int i = 32; i < 64; ++i) mask(i, false);
+        }
+      }
+    }
+    // Online softmax in the exp2 domain; P rounded to bf16 for the product.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[i], s[i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[i + 2], s[i + 3]));
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * a.scale_log2);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;  // no live key in the row yet
+      alpha[r] = ex2(m[r] - mu[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = ex2(fmaf(s[i], a.scale_log2, -mu[r]));
+      const float p1 = ex2(fmaf(s[i + 1], a.scale_log2, -mu[r]));
+      l[r] += p0 + p1;
+      pa[i >> 1] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+
+    mbar_wait(v_full(st), par);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) wg_pin(o[j]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < W_BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        wgmma_pv(o[j], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                 pa[4 * kk + 3],
+                 desc_mnmajor(sV + (st * NB + j) * W_KVBOX + 16 * 128 * kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int j = 0; j < NB; ++j) wg_pin(o[j]);
+    named_sync(1, NC * 128);  // every warpgroup is done with stage st
+    if (threadIdx.x == 0 && it + W_STAGES < n_tiles) load_kv(it + W_STAGES);
+  }
+
+  // Epilogue: O / l as bf16 into this warpgroup's rows of the Q tile (same
+  // swizzle, so a quad's stores hit distinct banks), then 16-byte stores
+  // of whole rows, masked at S and D.
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no live key: 0
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pr = 64 * wg + 16 * wq + g + 8 * r;  // row in the tile
+        *reinterpret_cast<uint32_t*>(sm + C::q + j * C::qbox + pr * 128 +
+                                     ((n8 ^ (pr & 7)) << 4) + 4 * t) =
+            pack_bf16(o[j][4 * n8 + 2 * r] * inv[r],
+                      o[j][4 * n8 + 2 * r + 1] * inv[r]);
+      }
+  named_sync(2 + wg, 128);
+  using bf16 = __nv_bfloat16;
+  bf16* ob = static_cast<bf16*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh;
+  for (int c = threadIdx.x & 127; c < NB * 64 * 8; c += 128) {
+    const int j = c >> 9, lr = (c >> 3) & 63, ch = c & 7;
+    const int pr = 64 * wg + lr, row = q0 + pr, col = 64 * j + 8 * ch;
+    if (row < a.S && col < a.D)
+      *reinterpret_cast<uint4*>(ob + (size_t)row * a.oss + col) =
+          *reinterpret_cast<const uint4*>(sm + C::q + j * C::qbox + pr * 128 +
+                                          ((ch ^ (pr & 7)) << 4));
+  }
+}
+
+template <int NB, int NC>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using C = WCfg<NB, NC>;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, a.q, C::bq, a.D, a.S, a.H, a.B, a.qss, a.qsh, a.qsb) ||
+      !encode_map(&tk, a.k, W_BK, a.D, a.S, a.Hkv, a.B, a.kss, a.ksh, a.ksb) ||
+      !encode_map(&tv, a.v, W_BK, a.D, a.S, a.Hkv, a.B, a.vss, a.vsh, a.vsb))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<NB, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.H, a.B, (a.S + C::bq - 1) / C::bq);
+  flash_fwd_wgmma<NB, NC><<<grid, C::threads, C::smem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+enum Body { BODY_SIMT = 0, BODY_MMA = 1, BODY_WGMMA = 2 };
 
 }  // namespace
 
@@ -444,10 +931,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int S, int D, int qsb, int qss, int qsh,
                                    int ksb, int kss, int ksh, int vsb, int vss,
                                    int vsh, int osb, int oss, int osh,
-                                   int causal, int window, int kv_len,
+                                   int causal, int window, int kv_len, int body,
                                    void* stream) {
   if (B <= 0 || S <= 0 || D <= 0 || D > DMAX || Hkv <= 0 || H % Hkv != 0 ||
-      (dtype != 0 && dtype != 1))
+      kv_len < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
@@ -460,12 +947,23 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.kv_lim = kv_len < S ? kv_len : S;
   a.scale_log2 = LOG2E / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_simt(a, st);
-  // 16-byte vector loads where every row of every operand starts aligned
+  if (body == BODY_SIMT)
+    return dtype == 0 ? (int)launch_simt(a, st) : (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int strides[] = {qsb, qss, qsh, ksb, kss, ksh,
-                         vsb, vss, vsh, osb, oss, osh, D};
-  int vec8 = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
-  for (int s : strides) vec8 = vec8 && s % 8 == 0;
-  return (int)(D <= 64 ? launch_mma<64>(a, vec8, st)
-                       : launch_mma<128>(a, vec8, st));
+                         vsb, vss, vsh, osb, oss, osh};
+  bool aligned = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  if (body == BODY_MMA) {
+    // 16-byte vector loads where every row of every operand starts aligned
+    int vec8 = aligned && D % 8 == 0;
+    for (int s : strides) vec8 = vec8 && s % 8 == 0;
+    return (int)(D <= 64 ? launch_mma<64>(a, vec8, st)
+                         : launch_mma<128>(a, vec8, st));
+  }
+  if (body != BODY_WGMMA) return (int)cudaErrorInvalidValue;
+  // TMA's rules: 16-byte-aligned bases and byte strides, whole 16-byte rows
+  bool takes = aligned && D % 8 == 0;
+  for (int s : strides) takes = takes && s > 0 && s % 8 == 0;
+  if (!takes) return (int)cudaErrorInvalidValue;
+  return (int)(D <= 64 ? launch_wgmma<1, 2>(a, st) : launch_wgmma<2, 2>(a, st));
 }

@@ -132,3 +132,108 @@ def test_tensors_off_the_asked_device_raise():
     q, k, v = _t(*_qkv(5, 1, 2, 2, 32, 16))
     with pytest.raises(ValueError, match="asked for"):
         flash_attention(q, k, v, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# The choice of the kernel's body (pure Python; the launch needs the card)
+# ---------------------------------------------------------------------------
+
+_ALIGNED = [0x7F0000000000 + 512 * i for i in range(4)]
+
+
+def _bshd_strides(B, S, H, Hkv, D):
+    """Batch, seq and head strides of contiguous [B, S, heads, D] q, k, v,
+    out."""
+    qs = [S * H * D, H * D, D]
+    ks = [S * Hkv * D, Hkv * D, D]
+    return qs + ks + ks + qs
+
+
+@pytest.mark.parametrize("dtype,D,strides,ptrs,want", [
+    (torch.bfloat16, 64, _bshd_strides(8, 512, 32, 8, 64), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 128, _bshd_strides(2, 384, 8, 2, 128), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 8, _bshd_strides(1, 200, 2, 2, 8), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 100, _bshd_strides(2, 256, 8, 2, 100), _ALIGNED, "mma"),
+    (torch.bfloat16, 36, _bshd_strides(1, 64, 2, 2, 36), _ALIGNED, "mma"),
+    (torch.bfloat16, 64, [8 * 64 * 12, 64 * 12 + 4, 64] * 4, _ALIGNED, "mma"),
+    (torch.bfloat16, 64, [0, 64, 64 * 64] * 4, _ALIGNED, "mma"),
+    (torch.bfloat16, 64, _bshd_strides(1, 64, 2, 2, 64),
+     _ALIGNED[:3] + [_ALIGNED[3] + 8], "mma"),
+    (torch.float32, 64, _bshd_strides(8, 512, 32, 8, 64), _ALIGNED, "simt"),
+    (torch.float32, 100, _bshd_strides(2, 256, 8, 2, 100), _ALIGNED, "simt"),
+])
+def test_auto_body_choice(dtype, D, strides, ptrs, want):
+    from repro_torch.kernels.flash_attention.kernel import select_body, takes
+    assert select_body(dtype, D, strides, ptrs) == want
+    assert takes(want, dtype, D, strides, ptrs)
+    # mma takes every bf16 call, simt every f32 call, and nothing else
+    assert takes("mma", dtype, D, strides, ptrs) == (dtype == torch.bfloat16)
+    assert takes("simt", dtype, D, strides, ptrs) == (dtype == torch.float32)
+
+
+def test_model_layout_takes_wgmma():
+    """The q, k, v the smoke model hands to ``attention`` in a prefill meet
+    the wgmma body's rules (byte offsets from an aligned base)."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attention.kernel import select_body
+    from repro_torch.models import transformer
+    from repro_torch.models.zoo import build
+    cfg = configs.get_smoke("llama3.2-1b").scaled(compute_dtype="float32")
+    model = build(cfg, device="cpu")
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v))
+        return attention(q, k, v, **kw)
+
+    saved = transformer.attention
+    transformer.attention = spy
+    try:
+        tok = torch.zeros((2, 16), dtype=torch.int64)
+        with torch.inference_mode():
+            model.prefill({"tokens": tok}, model.init_cache(2, 16))
+    finally:
+        transformer.attention = saved
+    assert len(seen) == cfg.n_layers
+    for q, k, v in seen:
+        out = torch.empty(q.shape)
+        strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+        offsets = [2 * x.storage_offset() for x in (q, k, v, out)]
+        assert select_body(torch.bfloat16, q.shape[-1], strides,
+                           offsets) == "wgmma"
+
+
+def test_unknown_body_raises():
+    from repro_torch.kernels.flash_attention.kernel import takes
+    q, k, v = _t(*_qkv(6, 1, 2, 2, 32, 16))
+    with pytest.raises(ValueError, match="unknown body"):
+        flash_attention(q, k, v, device="cpu", body="tma")
+    with pytest.raises(ValueError, match="unknown body"):
+        takes("wmma", torch.bfloat16, 64, [64] * 12, _ALIGNED)
+
+
+@pytest.mark.parametrize("body", ["wgmma", "mma", "simt"])
+def test_body_with_cpu_tensor_raises(body):
+    """A body names a kernel; a CPU tensor only takes the plain version."""
+    q, k, v = _t(*_qkv(7, 1, 2, 2, 32, 16))
+    with pytest.raises(ValueError, match="CPU tensor"):
+        flash_attention(q, k, v, device="cpu", body=body)
+    with pytest.raises(ValueError, match="CPU tensor"):
+        attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  body=body)
+    assert flash_attention.launches == 0
+    assert set(flash_attention.launches_by_body.values()) == {0}
+
+
+@pytest.mark.parametrize("kv_len", [0, -1])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_len_below_one_raises(kv_len, causal):
+    """With no live key the reference averages V (every score -1e30), the
+    Pallas kernel reads kv_len=0 as S, and the CUDA kernel wrote zeros:
+    ``attention`` refuses kv_len < 1 on every route."""
+    q, k, v = _t(*_qkv(8, 1, 2, 2, 32, 16))
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention(q, k, v, causal=causal, kv_len=kv_len, device="cpu")
+    with pytest.raises(ValueError, match="kv_len"):
+        attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal=causal, kv_len=kv_len)

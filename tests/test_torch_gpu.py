@@ -1,5 +1,6 @@
-"""Tests of the port that need the card: the flash-attention, range-filter,
-dequant and BP32-unpack kernels against their plain versions, the smoke
+"""Tests of the port that need the card: the flash-attention kernel (each
+body), range-filter, dequant and BP32-unpack kernels against their plain
+versions, the choice of the flash-attention body, the smoke
 model on CUDA against the CPU, and predicate and quantized reads on CUDA
 against the CPU. They skip where CUDA is absent. On an H100:
 
@@ -229,3 +230,87 @@ def test_quantized_read_on_cuda_matches_cpu(cuda, tmp_path):
     for k in want:
         assert got[k].dtype == want[k].dtype
         assert np.array_equal(got[k].view(np.uint8), want[k].view(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention kernel's wgmma body, and the choice of body
+# ---------------------------------------------------------------------------
+
+
+def _bshd(rng, B, S, H, Hkv, D, layout, device):
+    """bf16 q, k, v as [B, S, heads, D] views: contiguous ("bshd"),
+    transposed [B, heads, S, D] storage ("bhsd"), or slices of one fused
+    projection ("fused", as a model may give)."""
+    def mk(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.bfloat16,
+                            device=device)
+    if layout == "fused":
+        qkv = mk(B, S, (H + 2 * Hkv) * D)
+        return (qkv[..., :H * D].unflatten(-1, (H, D)),
+                qkv[..., H * D:(H + Hkv) * D].unflatten(-1, (Hkv, D)),
+                qkv[..., (H + Hkv) * D:].unflatten(-1, (Hkv, D)))
+    if layout == "bhsd":
+        return (mk(B, H, S, D).transpose(1, 2), mk(B, Hkv, S, D).transpose(1, 2),
+                mk(B, Hkv, S, D).transpose(1, 2))
+    return mk(B, S, H, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,kv_len,layout", [
+    (8, 32, 8, 512, 64, True, 0, None, "bshd"),      # the serving shape
+    (2, 8, 2, 384, 128, True, 0, None, "bshd"),      # D = 128, GQA 4:1
+    (1, 4, 1, 200, 64, True, 0, None, "bshd"),       # ragged S
+    (1, 4, 1, 200, 128, True, 0, None, "bhsd"),
+    (2, 4, 4, 129, 64, True, 0, None, "bshd"),       # one row past a tile
+    (2, 4, 4, 129, 128, False, 0, None, "bshd"),
+    (2, 4, 1, 256, 64, False, 0, 130, "bshd"),       # kv_len
+    (2, 4, 2, 256, 64, True, 0, 77, "bhsd"),
+    (2, 4, 4, 256, 64, True, 64, None, "bshd"),      # window
+    (1, 4, 2, 300, 128, True, 100, 250, "bshd"),
+    (2, 4, 4, 256, 64, True, 0, None, "bhsd"),       # H = Hkv = 4
+    (2, 1, 1, 256, 64, True, 0, None, "bshd"),       # H = Hkv = 1
+    (2, 4, 4, 256, 32, False, 0, None, "bshd"),      # D = 32
+    (2, 4, 2, 128, 64, True, 0, None, "fused"),      # the model's views
+    (1, 8, 2, 96, 96, True, 0, None, "fused"),
+])
+def test_wgmma_body_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
+                                  kv_len, layout):
+    q, k, v = _bshd(np.random.default_rng(S + D), B, S, H, Hkv, D, layout,
+                    cuda)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    before = dict(flash_attention.launches_by_body)
+    out = attention(q, k, v, body="wgmma", **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_body["wgmma"] == before["wgmma"] + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), **kw).transpose(1, 2)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 100, "mma"), (torch.float32, 64, "simt"),
+])
+def test_auto_takes_the_body_the_rule_gives(cuda, dtype, D, want):
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=dtype, device=cuda)
+               for s in [(2, 128, 8, D), (2, 128, 2, D), (2, 128, 2, D)])
+    before = dict(flash_attention.launches_by_body)
+    n = flash_attention.launches
+    out = attention(q, k, v)
+    torch.cuda.synchronize()
+    ran = {b: c - before[b] for b, c in flash_attention.launches_by_body.items()}
+    assert ran == {b: int(b == want) for b in ran}
+    assert flash_attention.launches == n + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2)).transpose(1, 2)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+def test_a_body_that_cannot_take_the_call_raises(cuda):
+    q = torch.zeros(1, 64, 2, 100, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        attention(q, q, q, body="wgmma")             # D % 8 != 0
+    with pytest.raises(ValueError, match="does not take"):
+        attention(q.float(), q.float(), q.float(), body="mma")
+    with pytest.raises(ValueError, match="does not take"):
+        attention(q, q, q, body="simt")
