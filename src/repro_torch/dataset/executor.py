@@ -10,12 +10,12 @@ out in ``execute_group``, which orders the stages exactly once:
 
 ``decode_group`` is the pread+decode+mask+dequantize core (moved here from
 ``BullionReader.project``); its dequantize runs in the dequant kernel on the
-card (``kernels.dequant``) for BF16 and affine-integer columns, in NumPy for
-the other modes. ``execute_group`` layers predicate evaluation (NumPy or the
-range-filter kernel on the card, ``kernels.filter``) and raw-row-id
-selection on top. Results are NumPy tables on the host: the quantized codes
-and the filter's columns go to the device, the values and the mask come
-back.
+card (``kernels.dequant``, one launch for the BF16 and affine-integer
+columns of a call), in NumPy for the other modes. ``execute_group`` layers
+predicate evaluation (NumPy or the range-filter kernel on the card,
+``kernels.filter``) and raw-row-id selection on top. Results are NumPy
+tables on the host: the quantized codes and the filter's columns go to the
+device, the values and the mask come back.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 from ..core import integrity as _integrity
 from ..core import pages as pages_mod
 from ..core.footer import ColKind, PageType, Sec, ShardCorruptError
-from ..core.quantization import QuantMode, QuantSpec, dequantize
+from ..core.quantization import QuantMode, dequantize, storage_dtype
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from ..scan.predicate import Predicate, conjunctive_ranges, evaluate
@@ -132,24 +132,19 @@ _KERNEL_QUANT_MODES = frozenset({QuantMode.BF16, QuantMode.INT8_AFFINE,
                                  QuantMode.INT16_AFFINE})
 
 
-def _dequantize(val: np.ndarray, spec: QuantSpec, use_kernel: Optional[bool],
-                device) -> np.ndarray:
-    """One column's dequantize: NumPy ``dequantize`` when ``use_kernel`` is
-    False or the mode is not the kernel's, else the dequant kernel on
-    ``device`` with float64 arithmetic (NumPy's bits): a writable host copy
-    (decoded pages may be read-only views), H2D, one ``[N, 1]`` launch, D2H.
-    On ``"cpu"`` the plain version runs instead of the kernel."""
-    if use_kernel is False or spec.mode not in _KERNEL_QUANT_MODES:
-        return dequantize(val, spec)
-    from .. import resolve_device
-    from ..kernels.dequant import dequant
-    dev = resolve_device(device)
-    q = torch.from_numpy(np.array(val)).to(dev)
-    params = torch.tensor([spec.scale, spec.zero], dtype=torch.float64,
-                          device=dev)
-    out = dequant(q.view(-1, 1), params[:1], params[1:], torch.float32,
-                  device=dev)
-    return out.cpu().numpy().reshape(-1)
+def _dequantize_columns(staged: list, device) -> dict:
+    """The kernel-route columns of one ``decode_group`` call, ``(name,
+    codes, spec)`` each, dequantized in one ``dequant_columns`` call on
+    ``device`` (float64 arithmetic: NumPy's bits): one staged copy to the
+    card, one launch, one copy back, one synchronisation. On ``"cpu"`` the
+    kernel's plain version runs instead."""
+    from ..kernels.dequant import dequant_columns
+    codes = [val.view(np.uint16) if spec.mode == QuantMode.BF16
+             else val.astype(storage_dtype(spec.mode), copy=False)
+             for _, val, spec in staged]
+    vals = dequant_columns(codes, [(spec.scale, spec.zero)
+                                   for *_, spec in staged], device=device)
+    return {name: v.numpy() for (name, *_), v in zip(staged, vals)}
 
 
 def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
@@ -165,15 +160,20 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
     range group-wide). ``align_raw`` pads compact-deleted pages back to the
     raw row space (only meaningful with ``drop_deleted=False``); the default
     keeps physical page content, which ``verify_deleted`` audits.
-    ``use_kernel`` and ``device`` choose the dequantize route
-    (``_dequantize``): the dequant kernel on ``device`` (default ``cuda``)
-    unless ``use_kernel`` is False.
+    ``use_kernel`` and ``device`` choose the dequantize route: unless
+    ``use_kernel`` is False, the BF16 and affine-integer columns go, after
+    every column is decoded, through one call of the dequant kernel's
+    column-list body on ``device`` (default ``cuda``;
+    ``_dequantize_columns``); the other modes, and every mode under
+    ``use_kernel=False``, through NumPy ``dequantize``, a column at a time.
 
     Each stage is a distinct span (``decode.pread`` / ``decode.decode`` /
     ``decode.mask`` / ``decode.dequantize``) so traces and
     ``explain(analyze=True)`` attribute time per stage; with tracing
     disabled the spans are shared no-ops and the stage order is the only
-    (behavior-identical) difference from an uninstrumented decode.
+    (behavior-identical) difference from an uninstrumented decode. A
+    ``decode.dequantize`` span names its ``columns`` and ``route``: one
+    span for the kernel call and its columns, one for each NumPy column.
     """
     fv = reader.footer
     cols = [fv.column_index(n) for n in names]
@@ -206,6 +206,7 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
             return _decode_page_timed(int(flags[p]) & 0x7F, blob)
         return pages_mod.decode_page(int(flags[p]) & 0x7F, blob)
 
+    staged: list = []          # (name, codes, spec) for the dequant kernel
     for name, c in zip(names, cols):
         pids = _chunk_page_ids(fv, group, c, pages)
         with _trace.span("decode.decode", cat="decode",
@@ -224,12 +225,18 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
         val = parts[0] if len(parts) == 1 else _concat(parts)
         if dequant and kinds[c] == int(ColKind.SCALAR):
             spec = reader.quant_spec(c)
-            if spec.mode != QuantMode.NONE:
+            if use_kernel is not False and spec.mode in _KERNEL_QUANT_MODES:
+                staged.append((name, np.asarray(val), spec))
+            elif spec.mode != QuantMode.NONE:
                 with _trace.span("decode.dequantize", cat="decode",
-                                 column=name):
-                    val = _dequantize(np.asarray(val), spec, use_kernel,
-                                      device)
+                                 columns=[name], route="numpy"):
+                    val = dequantize(np.asarray(val), spec)
         out[name] = val
+    if staged:
+        with _trace.span("decode.dequantize", cat="decode",
+                         columns=[name for name, *_ in staged],
+                         route="kernel"):
+            out.update(_dequantize_columns(staged, device))
     return out
 
 

@@ -1,6 +1,7 @@
 """Binding of the Hopper dequant kernel (``csrc/dequant.cu``).
 
-``dequant_fwd`` checks the tensors, then launches the kernel on PyTorch's
+``dequant_fwd`` (the ``[R, C]`` body) and ``dequant_packed_fwd`` (the
+column-list body) check the tensors, then launch the kernel on PyTorch's
 current stream (the calling thread's). It does not synchronise; a refused
 launch raises here, a fault during the run shows at the next
 synchronisation.
@@ -13,6 +14,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .staging import DESC_DTYPE
 
 Q_TYPES = {torch.int8: 0, torch.uint8: 1, torch.int16: 2, torch.uint16: 3}
 ARITH_TYPES = (torch.float32, torch.float64)
@@ -60,3 +62,38 @@ def dequant_fwd(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                     int(out.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"dequant launch failed: CUDA error {err}")
+
+
+def _packed_fn():
+    fn = _build.load("dequant").lib.dequant_columns_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def dequant_packed_fwd(staging: torch.Tensor, n_cols: int, n_tiles: int,
+                       out: torch.Tensor) -> None:
+    """staging: uint8[nbytes] of ``staging.pack_columns`` (descriptors, then
+    codes), 16-byte aligned; out: float32[n_out] contiguous, large enough
+    for every column; both on one CUDA device."""
+    if not (staging.is_cuda and out.is_cuda and staging.device == out.device):
+        raise ValueError("staging and out must be on one CUDA device")
+    if staging.dtype != torch.uint8 or staging.dim() != 1 \
+            or not staging.is_contiguous() or staging.data_ptr() % 16:
+        raise ValueError("staging must be a contiguous, 16-byte-aligned "
+                         "uint8 vector")
+    if out.dtype != torch.float32 or out.dim() != 1 \
+            or not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("out must be a contiguous, 16-byte-aligned float32 "
+                         "vector")
+    if staging.numel() < n_cols * DESC_DTYPE.itemsize:
+        raise ValueError(f"staging of {staging.numel()} bytes holds no "
+                         f"{n_cols} descriptors")
+    with torch.cuda.device(staging.device):
+        stream = torch.cuda.current_stream(staging.device).cuda_stream
+        err = _packed_fn()(staging.data_ptr(), n_cols, n_tiles,
+                           out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dequant_columns launch failed: CUDA error {err}")

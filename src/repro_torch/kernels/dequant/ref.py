@@ -4,12 +4,16 @@ Ported from ``repro.kernels.dequant.ref``, with the arithmetic type taken
 from ``scale`` and ``zero``: float32 as the TPU kernel computes, float64 as
 the storage layer computes (``core.quantization.dequantize``). The multiply
 and the add are separate operations, never fused, so float64 gives NumPy's
-bits.
+bits. ``dequant_packed_ref`` is the plain version of the column-list body:
+it reads the same staging buffer (``staging.py``) and dequantizes each
+column with ``dequant_ref`` in float64.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .staging import CODE_DTYPES, descriptors
 
 
 def to_bf16(f: torch.Tensor) -> torch.Tensor:
@@ -35,3 +39,20 @@ def dequant_ref(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
         f = (q.to(scale.dtype) * scale + zero).to(torch.float32)
     f = f.contiguous()
     return to_bf16(f) if out_dtype == torch.bfloat16 else f.to(out_dtype)
+
+
+def dequant_packed_ref(staging: torch.Tensor, n_cols: int,
+                       n_out: int) -> torch.Tensor:
+    """staging: uint8 buffer of ``staging.pack_columns`` -> float32[n_out]
+    on its device, each column at its ``out_offset`` (gaps read 0)."""
+    out = torch.zeros(n_out, dtype=torch.float32, device=staging.device)
+    for d in descriptors(staging, n_cols):
+        code = CODE_DTYPES[int(d["q_type"])]
+        off, rows, at = int(d["code_offset"]), int(d["rows"]), int(d["out_offset"])
+        q = staging[off:off + rows * code.itemsize].view(
+            getattr(torch, code.name)).view(-1, 1)
+        params = torch.tensor([d["scale"], d["zero"]], dtype=torch.float64,
+                              device=staging.device)
+        out[at:at + rows] = dequant_ref(q, params[:1], params[1:],
+                                        torch.float32).view(-1)
+    return out

@@ -243,17 +243,19 @@ def test_quantized_rows_deleted_by_the_reference(files, use_kernel,
 
 @pytest.mark.parametrize("use_kernel", KERNEL_ROUTES)
 def test_dequantize_route_by_mode(files, monkeypatch, use_kernel):
-    """Only BF16 and the affine modes reach ``dequant`` (one ``[N, 1]``
-    call a column and row group, float64 scale and zero, on the plan's
-    device); FP8 and FP16 never do, and ``use_kernel=False`` sends none."""
+    """Only BF16 and the affine modes reach the dequant kernel: one
+    ``dequant_columns`` call for each ``decode_group`` call that has such a
+    column (float64 scale and zero, on the plan's device); FP8 and FP16
+    never do, and ``use_kernel=False`` sends none."""
     dq = importlib.import_module("repro_torch.kernels.dequant")
-    real, seen = dq.dequant, []
+    real, seen = dq.dequant_columns, []
 
-    def spy(q, scale, zero, out_dtype, *, device=None):
-        seen.append((q.dtype, tuple(q.shape), scale.dtype, str(device)))
-        return real(q, scale, zero, out_dtype, device=device)
+    def spy(codes, params, *, device=None):
+        seen.append(([c.dtype for c in codes], [len(c) for c in codes],
+                     [type(v) for p in params for v in p], str(device)))
+        return real(codes, params, device=device)
 
-    monkeypatch.setattr(dq, "dequant", spy)
+    monkeypatch.setattr(dq, "dequant_columns", spy)
     ds = dataset(files["quant"], device="cpu").select(QUANT_COLS) \
         .where(_pred(scan, "quant"))._with_kernel(use_kernel)
     ds.to_table()
@@ -261,9 +263,32 @@ def test_dequantize_route_by_mode(files, monkeypatch, use_kernel):
         assert seen == []
         return
     groups = len(ds.physical_plan().tasks)
-    # per group: q_i8 and q_i16 for the predicate, q_u8 and q_bf16 after it
-    want = [torch_dtype for _ in range(groups) for torch_dtype in
-            ("torch.int8", "torch.int16", "torch.uint8", "torch.uint16")]
-    assert sorted(str(d) for d, *_ in seen) == sorted(want)
-    assert all(shape == (1024, 1) and str(s) == "torch.float64"
-               and dev == "cpu" for _, shape, s, dev in seen)
+    # per group: q_i16 and q_i8 for the predicate (sorted), then q_u8 and
+    # q_bf16 in the order selected
+    want = [[np.int16, np.int8], [np.uint8, np.uint16]] * groups
+    assert [dtypes for dtypes, *_ in seen] == want
+    assert all(lengths == [1024, 1024] and set(kinds) == {float}
+               and dev == "cpu" for _, lengths, kinds, dev in seen)
+
+
+@pytest.mark.parametrize("use_kernel", KERNEL_ROUTES)
+def test_dequantize_spans_name_their_columns(files, use_kernel):
+    """One ``decode.dequantize`` span for the kernel call with its column
+    list, one for each NumPy column."""
+    from repro_torch.obs import trace
+    ds = dataset(files["quant"], device="cpu").select(QUANT_COLS) \
+        .where(_pred(scan, "quant"))._with_kernel(use_kernel)
+    with trace.collect() as tracer:
+        ds.to_table()
+    spans = [(r.args["route"], tuple(r.args["columns"]))
+             for r in tracer.spans if r.name == "decode.dequantize"]
+    groups = len(ds.physical_plan().tasks)
+    numpy_cols = ["q_fp8", "q_fp16"]
+    if use_kernel is False:
+        numpy_cols = ["q_i8", "q_i16", "q_u8", "q_bf16", "q_fp8", "q_fp16"]
+    else:
+        kernel = [("kernel", ("q_i16", "q_i8")), ("kernel", ("q_u8", "q_bf16"))]
+        assert [s for s in spans if s[0] == "kernel"] == kernel * groups
+    assert sorted(c for route, cols in spans if route == "numpy"
+                  for c in cols) == sorted(numpy_cols * groups)
+    assert all(len(cols) == 1 for route, cols in spans if route == "numpy")

@@ -9,6 +9,10 @@ float32 multiply and add bit for bit). float32 arithmetic, bfloat16 output:
 equal. bf16 bits: equal, NaN payloads and subnormal codes included. float64
 arithmetic (the read path's route): equal to
 ``repro.core.quantization.dequantize`` on every code.
+
+The column list (``dequant_columns``, the read path's entry) runs float64
+arithmetic: equal to ``dequantize`` bit for bit, and within ``atol=1e-3`` of
+the Pallas kernel's float32 arithmetic (equal for bf16 bits).
 """
 
 import sys
@@ -26,8 +30,13 @@ from repro.core.quantization import affine_spec_for as ref_affine_spec_for
 from repro.core.quantization import dequantize as ref_dequantize
 from repro.kernels.dequant import dequant as jax_dequant
 from repro.kernels.dequant import dequant_ref as jax_dequant_ref
-from repro_torch.kernels.dequant import dequant, dequant_ref, ops, to_bf16
-from repro_torch.kernels.dequant.kernel import dequant_fwd
+from repro_torch.kernels.dequant import (dequant, dequant_columns,
+                                        dequant_packed, dequant_packed_ref,
+                                        dequant_ref, ops, pack_columns,
+                                        to_bf16)
+from repro_torch.kernels.dequant.kernel import dequant_fwd, dequant_packed_fwd
+from repro_torch.kernels.dequant.staging import (CODE_TYPES, DESC_DTYPE,
+                                                 TILE_BYTES, descriptors)
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 AFFINE = [np.int8, np.uint8, np.int16]
@@ -220,3 +229,163 @@ def test_launch_count_loses_no_update_across_threads():
     assert not any(t.is_alive() for t in threads)
     assert dequant.launches == before + 16 * 2000
     dequant.launches = before
+
+
+# ---------------------------------------------------------------------------
+# the column list: one staging buffer, one launch
+# ---------------------------------------------------------------------------
+
+MODE_OF = {np.int8: RefQuantMode.INT8_AFFINE, np.uint8: RefQuantMode.UINT8_AFFINE,
+           np.int16: RefQuantMode.INT16_AFFINE, np.uint16: RefQuantMode.BF16}
+
+
+def _mixed_group(seed, n_cols, max_rows=5000):
+    """Columns of all four code types at odd lengths (one empty), each with
+    the spec the writer would give it."""
+    rng = np.random.default_rng(seed)
+    codes, specs = [], []
+    for i in range(n_cols):
+        code = list(MODE_OF)[i % 4]
+        rows = 0 if i == 2 else int(rng.integers(1, max_rows)) | 1
+        info = np.iinfo(code)
+        codes.append(rng.integers(info.min, info.max + 1, rows).astype(code))
+        if code == np.uint16:
+            specs.append(RefQuantSpec(RefQuantMode.BF16))
+        else:
+            specs.append(ref_affine_spec_for(rng.normal(size=100) * (i + 1),
+                                             MODE_OF[code]))
+    return codes, specs
+
+
+@pytest.mark.parametrize("n_cols", [1, 7, 70])
+def test_columns_equal_dequantize_and_pallas_kernel(n_cols):
+    """Column by column, bit for bit against NumPy ``dequantize``, and
+    against the Pallas kernel (float32 arithmetic) within its tolerance."""
+    codes, specs = _mixed_group(20 + n_cols, n_cols)
+    got = dequant_columns(codes, [(sp.scale, sp.zero) for sp in specs],
+                          device="cpu")
+    assert len(got) == n_cols
+    for q, spec, g in zip(codes, specs, got):
+        assert g.dtype == torch.float32 and g.shape == q.shape
+        assert np.array_equal(_bits(g), _bits(ref_dequantize(q, spec)))
+        if not len(q):          # the Pallas wrapper takes no empty column
+            continue
+        one = np.ones(1, np.float32)
+        scale, zero = one * np.float32(spec.scale), one * np.float32(spec.zero)
+        kern = np.asarray(jax_dequant(q.reshape(-1, 1), scale, zero,
+                                      out_dtype=jnp.float32)).reshape(-1)
+        if q.dtype == np.uint16:
+            assert np.array_equal(_bits(g), _bits(kern))
+        else:
+            assert np.allclose(g.numpy(), kern, atol=1e-3)
+
+
+@pytest.mark.parametrize("n_cols", [0, 1, 5, 64])
+def test_pack_columns_round_trips(n_cols):
+    """The staging buffer: descriptors at the head, codes at 16-byte
+    aligned offsets after it and read back unchanged, outputs at 16-byte
+    aligned offsets that do not overlap, tiles of TILE_BYTES of codes."""
+    codes, specs = _mixed_group(30 + n_cols, n_cols, max_rows=20_000)
+    params = [(sp.scale, sp.zero) for sp in specs]
+    packed = pack_columns(codes, params)
+    buf = packed.buffer
+    assert buf.dtype == torch.uint8 and buf.dim() == 1
+    desc = descriptors(buf, n_cols)
+    assert DESC_DTYPE.itemsize == 64 and len(desc) == n_cols
+    end, out_end, tile = -(-n_cols * 64 // 16) * 16, 0, 0
+    host = buf.numpy()
+    for d, q, (scale, zero) in zip(desc, codes, params):
+        off, at, rows = int(d["code_offset"]), int(d["out_offset"]), int(d["rows"])
+        assert off % 16 == 0 and off >= end and at % 4 == 0 and at >= out_end
+        assert rows == len(q) and int(d["q_type"]) == CODE_TYPES[q.dtype]
+        assert (d["scale"], d["zero"]) == (scale, zero)
+        assert int(d["tile_start"]) == tile
+        assert np.array_equal(host[off:off + q.nbytes].view(q.dtype), q)
+        end, out_end = off + q.nbytes, at + rows
+        tile += -(-q.nbytes // TILE_BYTES)
+    assert buf.numel() >= end and packed.n_out >= out_end
+    assert packed.n_tiles == tile and packed.n_cols == n_cols
+    assert packed.rows == tuple(len(q) for q in codes)
+    assert packed.out_offsets == tuple(int(o) for o in desc["out_offset"])
+
+
+def test_pack_columns_takes_tensors_and_strided_arrays():
+    rng = np.random.default_rng(40)
+    base = rng.integers(-2**15, 2**15, 3001).astype(np.int16)
+    codes = [base[::3], torch.from_numpy(base[:100].copy())]
+    packed = pack_columns(codes, [(0.5, 1.0), (2.0, -1.0)])
+    host, desc = packed.buffer.numpy(), descriptors(packed.buffer, 2)
+    for d, q in zip(desc, [base[::3], base[:100]]):
+        off = int(d["code_offset"])
+        assert np.array_equal(host[off:off + q.nbytes].view(np.int16), q)
+
+
+def _hand_packed(codes, params, code_offsets, out_offsets):
+    """A staging buffer laid out by hand, at offsets the packer would not
+    choose (only aligned to the code's size)."""
+    desc = np.zeros(len(codes), DESC_DTYPE)
+    tile = 0
+    for d, q, (scale, zero), off, at in zip(desc, codes, params, code_offsets,
+                                            out_offsets):
+        d["code_offset"], d["out_offset"], d["rows"] = off, at, len(q)
+        d["tile_start"], d["scale"], d["zero"] = tile, scale, zero
+        d["q_type"] = CODE_TYPES[q.dtype]
+        tile += -(-q.nbytes // TILE_BYTES)
+    host = np.zeros(max(o + q.nbytes for o, q in zip(code_offsets, codes)),
+                    np.uint8)
+    host[:desc.nbytes] = desc.view(np.uint8)
+    for q, off in zip(codes, code_offsets):
+        host[off:off + q.nbytes].view(q.dtype)[:] = q
+    return torch.from_numpy(host), tile
+
+
+def test_packed_plain_version_reads_unaligned_columns():
+    """``dequant_packed_ref`` follows the descriptors, not the packer's
+    alignment: codes at odd (size-aligned) offsets, outputs back to back."""
+    rng = np.random.default_rng(41)
+    codes = [rng.integers(-128, 128, 37).astype(np.int8),
+             rng.integers(0, 2**16, 1001).astype(np.uint16),
+             rng.integers(0, 256, 9000).astype(np.uint8),
+             rng.integers(-2**15, 2**15, 17).astype(np.int16)]
+    params = [(0.25, -3.0), (0.0, 0.0), (0.01, 5.0), (1e-3, 0.5)]
+    code_offsets = [4 * 64 + 1, 4 * 64 + 40, 4 * 64 + 2043, 4 * 64 + 11_050]
+    out_offsets = list(np.cumsum([0] + [len(q) for q in codes[:-1]]) + 3)
+    staging, n_tiles = _hand_packed(codes, params, code_offsets, out_offsets)
+    n_out = out_offsets[-1] + len(codes[-1])
+    out = dequant_packed(staging, 4, n_tiles, n_out)
+    assert np.array_equal(_bits(out),
+                          _bits(dequant_packed_ref(staging, 4, n_out)))
+    for q, (scale, zero), at in zip(codes, params, out_offsets):
+        spec = RefQuantSpec(RefQuantMode.BF16) if q.dtype == np.uint16 \
+            else RefQuantSpec(MODE_OF[q.dtype.type], scale, zero)
+        assert np.array_equal(_bits(out[at:at + len(q)]),
+                              _bits(ref_dequantize(q, spec)))
+
+
+def test_columns_checks_and_cpu_route_launches_nothing():
+    before = (dequant.launches, dequant_packed.launches)
+    assert dequant_columns([], [], device="cpu") == []
+    empty = dequant_columns([np.zeros(0, np.int8)], [(1.0, 0.0)], device="cpu")
+    assert [tuple(e.shape) for e in empty] == [(0,)]
+    assert (dequant.launches, dequant_packed.launches) == before
+    with pytest.raises(ValueError, match="codes"):
+        dequant_columns([np.zeros(4, np.int32)], [(1.0, 0.0)], device="cpu")
+    with pytest.raises(ValueError, match="codes"):
+        dequant_columns([np.zeros((2, 2), np.int8)], [(1.0, 0.0)],
+                        device="cpu")
+    with pytest.raises(ValueError, match="columns"):
+        dequant_columns([np.zeros(4, np.int8)], [], device="cpu")
+    packed = pack_columns([np.zeros(4, np.int8)], [(1.0, 0.0)])
+    with pytest.raises(ValueError, match="CUDA device"):
+        dequant_packed_fwd(packed.buffer, 1, 1, torch.empty(4))
+
+
+def test_columns_do_not_alias_a_reused_buffer():
+    """Each call hands back views of its own output: a later call leaves
+    the earlier columns as they were."""
+    codes, specs = _mixed_group(42, 6)
+    params = [(sp.scale, sp.zero) for sp in specs]
+    first = dequant_columns(codes, params, device="cpu")
+    kept = [_bits(c).copy() for c in first]
+    dequant_columns([c[::-1].copy() for c in codes], params, device="cpu")
+    assert all(np.array_equal(_bits(a), b) for a, b in zip(first, kept))

@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the flash-attention kernel (each
-body), range-filter, dequant and BP32-unpack kernels against their plain
-versions, the choice of the flash-attention body, the smoke
+body), range-filter, dequant (both bodies) and BP32-unpack kernels against
+their plain versions, the choice of the flash-attention body, the smoke
 model on CUDA against the CPU, and predicate and quantized reads on CUDA
 against the CPU. They skip where CUDA is absent. On an H100:
 
@@ -17,7 +17,11 @@ from repro_torch.core.quantization import (QuantMode, QuantSpec,
 from repro_torch.data import write_ads_table, write_quant_table
 from repro_torch.dataset import dataset
 from repro_torch.kernels.bitunpack import bitunpack, bitunpack_ref, pack_bp32
-from repro_torch.kernels.dequant import dequant, dequant_ref
+from repro_torch.kernels.dequant import (dequant, dequant_columns,
+                                        dequant_packed, dequant_packed_ref,
+                                        dequant_ref, pack_columns)
+from repro_torch.kernels.dequant.staging import (CODE_TYPES, DESC_DTYPE,
+                                                 TILE_BYTES)
 from repro_torch.kernels.filter import range_mask, range_mask_ref
 from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  flash_attention)
@@ -216,15 +220,141 @@ def test_bitunpack_strided_planes(cuda):
     assert np.array_equal(got.cpu().numpy(), want.numpy())
 
 
+MODES = {np.int8: QuantMode.INT8_AFFINE, np.uint8: QuantMode.UINT8_AFFINE,
+         np.int16: QuantMode.INT16_AFFINE, np.uint16: QuantMode.BF16}
+
+
+def _column_group(seed, n_cols, max_rows):
+    """All four code types at odd lengths, column 2 empty, with specs."""
+    rng = np.random.default_rng(seed)
+    codes, specs = [], []
+    for i in range(n_cols):
+        code = list(MODES)[i % 4]
+        rows = 0 if i == 2 else int(rng.integers(1, max_rows)) | 1
+        info = np.iinfo(code)
+        codes.append(rng.integers(info.min, info.max + 1, rows).astype(code))
+        specs.append(QuantSpec(QuantMode.BF16) if code == np.uint16 else
+                     affine_spec_for(rng.normal(size=100) * (i + 1), MODES[code]))
+    return codes, specs
+
+
+def _f32_bits(t):
+    return np.asarray(t.cpu().numpy() if isinstance(t, torch.Tensor) else t) \
+        .view(np.uint32)
+
+
+@pytest.mark.parametrize("n_cols,max_rows", [(1, 2**20), (7, 100_000),
+                                             (70, 5000)])
+def test_dequant_columns_bit_identical(cuda, n_cols, max_rows):
+    """The column-list body against its plain version on the card and
+    NumPy ``dequantize``, one launch for the whole list."""
+    codes, specs = _column_group(n_cols, n_cols, max_rows)
+    params = [(sp.scale, sp.zero) for sp in specs]
+    before = dequant_packed.launches
+    got = dequant_columns(codes, params)
+    assert dequant_packed.launches == before + 1
+    packed = pack_columns(codes, params)
+    staging = packed.buffer.to(cuda)
+    plain = dequant_packed_ref(staging, packed.n_cols, packed.n_out)
+    on_card = dequant_packed(staging, packed.n_cols, packed.n_tiles,
+                             packed.n_out)
+    torch.cuda.synchronize()
+    for q, spec, g, at in zip(codes, specs, got, packed.out_offsets):
+        assert g.device.type == "cpu" and g.dtype == torch.float32
+        want = _f32_bits(dequantize(q, spec))
+        assert np.array_equal(_f32_bits(g), want)
+        assert np.array_equal(_f32_bits(plain[at:at + len(q)]), want)
+        assert np.array_equal(_f32_bits(on_card[at:at + len(q)]), want)
+
+
+def test_dequant_packed_unaligned_columns(cuda):
+    """Columns laid out by hand at offsets the packer never chooses (codes
+    aligned only to their size, outputs back to back): the scalar path."""
+    rng = np.random.default_rng(14)
+    codes = [rng.integers(-128, 128, 37).astype(np.int8),
+             rng.integers(0, 2**16, 100_001).astype(np.uint16),
+             rng.integers(0, 256, 9000).astype(np.uint8),
+             rng.integers(-2**15, 2**15, 20_017).astype(np.int16)]
+    params = [(0.25, -3.0), (0.0, 0.0), (0.01, 5.0), (1e-3, 0.5)]
+    head = len(codes) * DESC_DTYPE.itemsize
+    code_offsets, pos = [], head + 1
+    for q in codes:
+        pos = -(-pos // q.itemsize) * q.itemsize + q.itemsize * 3
+        code_offsets.append(pos)
+        pos += q.nbytes
+    out_offsets = list(np.cumsum([3] + [len(q) for q in codes[:-1]]))
+    desc = np.zeros(len(codes), DESC_DTYPE)
+    tile = 0
+    for d, q, (sc, ze), off, at in zip(desc, codes, params, code_offsets,
+                                       out_offsets):
+        d["code_offset"], d["out_offset"], d["rows"] = off, at, len(q)
+        d["tile_start"], d["scale"], d["zero"] = tile, sc, ze
+        d["q_type"] = CODE_TYPES[q.dtype]
+        tile += -(-q.nbytes // TILE_BYTES)
+    host = np.zeros(pos, np.uint8)
+    host[:head] = desc.view(np.uint8)
+    for q, off in zip(codes, code_offsets):
+        host[off:off + q.nbytes].view(q.dtype)[:] = q
+    staging = torch.from_numpy(host).to(cuda)
+    n_out = out_offsets[-1] + len(codes[-1])
+    got = dequant_packed(staging, len(codes), tile, n_out)
+    plain = dequant_packed_ref(staging, len(codes), n_out)
+    torch.cuda.synchronize()
+    for q, (sc, ze), at in zip(codes, params, out_offsets):
+        spec = QuantSpec(QuantMode.BF16) if q.dtype == np.uint16 \
+            else QuantSpec(MODES[q.dtype.type], sc, ze)
+        want = _f32_bits(dequantize(q, spec))
+        assert np.array_equal(_f32_bits(got[at:at + len(q)]), want)
+        assert np.array_equal(_f32_bits(plain[at:at + len(q)]), want)
+
+
+def test_dequant_columns_outlive_the_next_call(cuda):
+    """The columns handed back are views of page-locked memory that no
+    later call reuses while they live."""
+    codes, specs = _column_group(15, 8, 50_000)
+    params = [(sp.scale, sp.zero) for sp in specs]
+    first = dequant_columns(codes, params)
+    kept = [_f32_bits(c).copy() for c in first]
+    for _ in range(3):
+        dequant_columns([c[::-1].copy() for c in codes], params)
+    assert all(np.array_equal(_f32_bits(a), b) for a, b in zip(first, kept))
+
+
+@pytest.mark.parametrize("width", range(1, 33))
+def test_bitunpack_every_width_ragged(cuda, width):
+    """The bit transpose at every width, at a ragged length, on contiguous
+    and on strided planes, against the values packed and the plain
+    version."""
+    rng = np.random.default_rng(100 + width)
+    n = 32 * 1000 + width * 7 + 3
+    vals = rng.integers(0, 2**width, n, dtype=np.uint64).astype(np.uint32)
+    planes = pack_bp32(vals, width)
+    before = bitunpack.launches
+    got = bitunpack(planes, width, n)
+    torch.cuda.synchronize()
+    assert bitunpack.launches == before + 1
+    assert np.array_equal(got.cpu().numpy(), vals)
+    wide = np.zeros((planes.shape[0], 33), np.uint32)
+    wide[:, 1:width + 1] = planes
+    view = torch.from_numpy(wide).to(cuda)[:, 1:width + 1]
+    got = bitunpack(view, width, n)
+    assert np.array_equal(got.cpu().numpy(), vals)
+    assert torch.equal(got.view(torch.int32),
+                       bitunpack_ref(view, width)[:n].view(torch.int32))
+
+
 def test_quantized_read_on_cuda_matches_cpu(cuda, tmp_path):
     path = str(tmp_path / "quant.bln")
     write_quant_table(path, n_rows=8192, rows_per_group=2048)
     cols = ["id", "q_i8", "q_u8", "q_i16", "q_bf16", "q_fp8", "q_fp16"]
     pred = (C("q_i8") > -0.5) & (C("q_i16") <= 2.0)
     ds = dataset(path, device="cuda").select(cols).where(pred)
-    before = dequant.launches
+    before = (dequant.launches, dequant_packed.launches)
     got = ds.to_table(parallelism=2)
-    assert dequant.launches == before + 4 * len(ds.physical_plan().tasks)
+    # one column-list launch for the predicate's columns and one for the
+    # payload's, in each row group
+    assert (dequant.launches, dequant_packed.launches) == (
+        before[0], before[1] + 2 * len(ds.physical_plan().tasks))
     want = dataset(path, device="cpu").select(cols).where(pred) \
         ._with_kernel(False).to_table()
     for k in want:

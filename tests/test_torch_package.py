@@ -163,12 +163,22 @@ def test_dequant_and_bitunpack_default_to_cuda():
 
 def test_kernels_build_without_fast_math():
     """Flushing subnormals would let x = 0 pass ``x > 0`` (lo = 1e-45) in
-    the filter, and would flush subnormal bf16 patterns in dequant."""
-    from repro_torch.kernels._build import NVCC_FLAGS
+    the filter, and would flush subnormal bf16 patterns in dequant. The
+    bit transpose of bitunpack and dequant's column-list body are built
+    with the same flags, and ask for no fast math themselves."""
+    from repro_torch.kernels._build import CSRC, NVCC_FLAGS, SOURCES
     flags = " ".join(NVCC_FLAGS)
     assert "--use_fast_math" not in flags and "-use_fast_math" not in flags
     assert "-ftz=true" not in flags and "--ftz=true" not in flags
     assert "sm_90a" in flags
+    assert {"bitunpack", "dequant"} <= set(SOURCES)
+    bitunpack = _code((CSRC / "bitunpack.cu").read_text())
+    dequant = _code((CSRC / "dequant.cu").read_text())
+    assert "__shfl_xor_sync" in bitunpack and "bitunpack_kernel" in bitunpack
+    assert "dequant_columns_kernel" in dequant
+    for code in (bitunpack, dequant):
+        assert "fast_math" not in code and "ftz" not in code
+        assert "#pragma nv_" not in code and "__launch_bounds__" in code
 
 
 def _code(src: str) -> str:
@@ -203,3 +213,48 @@ def test_dequant_affine_route_cannot_be_contracted():
     assert "fma" not in code.lower()
     affine = code[code.index("affine("):code.index("template")]
     assert "*" not in affine and "+" not in affine, affine
+
+
+def _function(code: str, name: str) -> str:
+    """The body of a CUDA function: from its name to the next function."""
+    start = code.index(name + "(")
+    return code[start:code.index("\n}\n", start)]
+
+
+def test_dequant_bodies_share_the_arithmetic():
+    """The [R, C] body and the column-list body compute a code's value in
+    one helper (``value``, which calls ``affine``), so they cannot drift
+    apart: neither multiplies or adds codes itself."""
+    from repro_torch.kernels._build import CSRC
+    code = _code((CSRC / "dequant.cu").read_text())
+    for body in ("dequant_kernel", "column_tile"):
+        text = _function(code, body)
+        assert "value(" in text, body
+        assert "__dmul" not in text and "__dadd" not in text, body
+    assert "affine(" in _function(code, "float value")
+
+
+def test_packer_matches_the_kernel_source():
+    """``staging.py`` mirrors ``ColumnDesc`` field for field, and the tile
+    size the kernel assumes (``kTileBytes``)."""
+    import re
+    from repro_torch.kernels._build import CSRC
+    from repro_torch.kernels.dequant.staging import DESC_DTYPE, TILE_BYTES
+    code = _code((CSRC / "dequant.cu").read_text())
+    struct = code[code.index("struct ColumnDesc {"):code.index("};",
+                  code.index("struct ColumnDesc {"))]
+    fields = re.findall(r"(\w+)(?:\[\d+\])?[,;]", struct)
+    assert fields == list(DESC_DTYPE.names)
+    consts = dict(re.findall(r"constexpr \w+(?: \w+)? (k\w+) = ([^;]+);",
+                             code))
+    assert consts["kTileBytes"] == "16LL * kThreads * kVecs"
+    assert TILE_BYTES == 16 * int(consts["kThreads"]) * int(consts["kVecs"])
+
+
+def test_dequant_columns_defaults_to_cuda():
+    from repro_torch.kernels.dequant import dequant_columns
+    codes = [np.zeros(4, np.int8)]
+    assert len(dequant_columns(codes, [(1.0, 0.0)], device="cpu")) == 1
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dequant_columns(codes, [(1.0, 0.0)])
