@@ -13,15 +13,20 @@ by the port's writer, with the dequantize of BF16 and affine-integer columns
 in the hand-written dequant kernel (its column-list body: one launch for
 the columns of each decode call) and the range filter in the hand-written
 filter kernel. The BP32 unpack: ``pack_bp32`` then ``bitunpack`` of 2**24
-values at width 11, in the hand-written unpack kernel. Phases, one JSON line
-each:
+values at width 11, in the hand-written unpack kernel. Deletion compliance
+(``delete_where`` on copies of the 4 Mi-row ads table), the write sink
+(``Dataset.write_to`` of the ads query), the training-data loader
+(``BullionLoader`` over an LM corpus of 8 Mi tokens) and trace export, each
+through the same filter and dequant kernels. Phases, one JSON line each:
 
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 16 cases,
+  3. kernels        -- flash attention against its plain version, 25 cases,
                        each through "auto" and through every body that
-                       takes it (wgmma, mma for bf16; simt for f32)
+                       takes it (wgmma, mma for bf16; simt for f32); 9 of
+                       them with 128 < D <= 256, where "auto" takes mma
+                       (bf16) or simt (f32)
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -54,7 +59,9 @@ each:
                        mma bodies and the PyTorch library call in device
                        time, warm and cold in L2, against the bound (bytes,
                        products, and exp2 at the MUFU rate) and the plain
-                       version; the event time of back-to-back calls
+                       version; the event time of back-to-back calls; the
+                       mma body at a gemma3-12b prefill (D = 256) the same
+                       way
  11. filter_times   -- the range filter at C=4, N=2**20 against its bound
                        and its plain version
  12. dequant_times  -- the column-list body at the ads payload's launch
@@ -71,6 +78,23 @@ each:
                        equal to the NumPy route, serially and on 4 threads,
                        scan times, and the time split (host stages, device
                        copies and kernels)
+ 15. compliance     -- delete_where on copies of the ads table (a float32
+                       range over two dense features at L2 and L1, 16 users
+                       at L2): files byte-identical to the device="cpu"
+                       route's, the audit, the rows left, the launches,
+                       the I/O ratio and the host time of each delete
+ 16. sink           -- write_to of the ads query, dequantized, sorted by
+                       dense_0, in shards of 2**19 rows: shards
+                       byte-identical to the cpu route's, read back equal to
+                       the scan sorted, the launches; the sink of an L1
+                       deleted copy leaves no raw occurrence
+ 17. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
+                       the cpu loader, a mid-epoch resume, the filter's
+                       launches with the loader's thread and a main-thread
+                       scan reading at once, tokens per second;
+                       quality_filtered_read against its cpu route
+ 18. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
+                       in a fresh interpreter, Prometheus text round trip
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero without the
@@ -81,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -195,7 +220,8 @@ def phase_build() -> None:
     built = _build.load_all()
     for name, b in built.items():
         regs = [ln.split("info    : ")[-1] for ln in b.log.splitlines()
-                if "registers" in ln or "spill" in ln or "wgmma" in ln]
+                if "registers" in ln or "spill" in ln or "wgmma" in ln
+                or "Compiling entry function" in ln]
         emit("build", source=f"src/repro_torch/csrc/{name}.cu",
              build_s=b.build_s, ptxas=regs)
     emit("build", all_s=time.perf_counter() - t0)
@@ -213,6 +239,9 @@ def _inputs(rng, B, H, Hkv, S, D, dtype, layout):
 SERVE_CASE = dict(B=SERVE_B, H=32, Hkv=8, S=SERVE_P, D=64,
                   dtype=torch.bfloat16, causal=True, window=0, kv_len=None,
                   layout="bshd")
+# a gemma3-12b prefill (head_dim 256, 16 query and 8 kv heads) of 2 x 1024
+WIDE_CASE = dict(B=2, H=16, Hkv=8, S=1024, D=256, dtype=torch.bfloat16,
+                 causal=True, window=0, kv_len=None, layout="bshd")
 
 
 def kernel_cases() -> list[dict]:
@@ -235,6 +264,19 @@ def kernel_cases() -> list[dict]:
                       dtype=torch.bfloat16, layout="bshd"))     # D = 128, GQA
     cases.append(dict(base, B=1, H=4, Hkv=1, S=200, D=128,
                       dtype=torch.bfloat16, layout="bshd"))     # ragged S
+    # 128 < D <= 256 (gemma3-12b, recurrentgemma-9b): mma for bf16, simt f32
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [
+            dict(WIDE_CASE, dtype=dtype),           # gemma3-12b prefill, GQA
+            dict(base, B=1, H=4, Hkv=1, S=1000, D=256, dtype=dtype,
+                 layout="bshd"),                    # MQA, ragged S
+            dict(base, B=2, H=4, Hkv=2, S=512, D=256, dtype=dtype,
+                 window=128),                       # window, strided views
+            dict(base, B=2, H=4, Hkv=4, S=384, D=256, dtype=dtype,
+                 causal=False, kv_len=300),         # kv_len < S
+        ]
+    cases.append(dict(base, B=1, H=4, Hkv=2, S=300, D=200,
+                      dtype=torch.bfloat16, layout="bshd"))     # D % 16 != 0
     return cases
 
 
@@ -251,13 +293,13 @@ def _bodies(q, k, v) -> tuple[str, list]:
             [b for b in BODIES if takes(b, q.dtype, D, strides, ptrs)])
 
 
-def phase_kernels(seed: int) -> float:
+def phase_kernels(seed: int) -> tuple[float, float]:
     """The kernel vs attention_ref on the card, each case through "auto"
     and through every body that takes it; returns the wgmma body's error
-    at the serving shape."""
+    at the serving shape and the mma body's at WIDE_CASE."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
-    serve_err = None
+    serve_err = wide_err = None
     for i, c in enumerate(kernel_cases()):
         rng = np.random.default_rng(seed + i)
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
@@ -271,7 +313,12 @@ def phase_kernels(seed: int) -> float:
             ref = attention_ref(q, k, v, **kw)
             qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
         auto_body, bodies = _bodies(qs, ks, vs)
-        if c["dtype"] == torch.bfloat16 and c["D"] % 8 == 0:
+        if c["D"] > 128:
+            want = "mma" if c["dtype"] == torch.bfloat16 else "simt"
+            check(auto_body == want and "wgmma" not in bodies,
+                  f"kernel case {i}: auto takes {auto_body} of {bodies}, "
+                  f"expected {want} and no wgmma (D > 128)")
+        elif c["dtype"] == torch.bfloat16 and c["D"] % 8 == 0:
             check(auto_body == "wgmma", f"kernel case {i}: auto takes "
                   f"{auto_body}, expected wgmma (aligned bf16, D % 8 == 0)")
         tol = TOL[c["dtype"]]
@@ -296,7 +343,9 @@ def phase_kernels(seed: int) -> float:
                   f"kernel case {i} body {body}: error {err} >= {tol}")
             if i == 0 and body == "wgmma":
                 serve_err = err
-    return serve_err
+            if c == dict(WIDE_CASE) and body == "mma":
+                wide_err = err
+    return serve_err, wide_err
 
 
 def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
@@ -519,10 +568,19 @@ def _mufu_ex2_per_s() -> float:
     return 16 * sms * float(mhz) * 1e6
 
 
-def phase_times(seed: int) -> dict:
+def _flash_work(B, H, Hkv, S, D, size):
+    """Bytes a causal call must move (each input read once, the output
+    written once) and the products of its live (query, key) pairs."""
+    live_pairs = B * H * S * (S + 1) // 2
+    return (2 * B * S * H + 2 * B * S * Hkv) * D * size, 4 * D * live_pairs, \
+        live_pairs
+
+
+def phase_times(seed: int) -> tuple[dict, dict]:
     """Flash attention at the serving shape: the wgmma body (the main
     path's) against its bound, its plain version and the library call, and
-    the mma body beside it, all in device time, warm and cold in L2."""
+    the mma body beside it, all in device time, warm and cold in L2. Then
+    the mma body at WIDE_CASE (D = 256), the same way."""
     from repro_torch.kernels.flash_attention import attention, attention_ref
     c = SERVE_CASE
     B, H, Hkv, S, D = c["B"], c["H"], c["Hkv"], c["S"], c["D"]
@@ -533,10 +591,8 @@ def phase_times(seed: int) -> dict:
     # least time for the same work: each input read once, the output written
     # once; the causal products of the live (query, key) pairs of this run.
     # exp_ms, one exp2 a live score at the MUFU rate, is printed beside it.
-    size = q.element_size()
-    bytes_moved = (2 * q.numel() + k.numel() + v.numel()) * size
-    live_pairs = B * H * S * (S + 1) // 2
-    flops = 4 * D * live_pairs
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size())
     row, extra = _time_kernel(
         lambda: attention(q, k, v, causal=True, body="wgmma"),
         lambda: attention_ref(qt, kt, vt, causal=True),
@@ -551,7 +607,24 @@ def phase_times(seed: int) -> dict:
          mma_ms=mma_ms, mma_cold_l2_ms=mma_cold_ms,
          mma_over_wgmma=mma_ms / row["ms"],
          wgmma_over_library=row["ms"] / row["library_ms"], **row)
-    return row
+
+    c = WIDE_CASE
+    B, H, Hkv, S, D = c["B"], c["H"], c["Hkv"], c["S"], c["D"]
+    q, k, v = _inputs(np.random.default_rng(seed), B, H, Hkv, S, D,
+                      c["dtype"], "bshd")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size())
+    wide, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=True, body="mma"),
+        lambda: attention_ref(qt, kt, vt, causal=True),
+        bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    emit("times", shape=[B, H, Hkv, S, D], dtype="bfloat16", causal=True,
+         body="mma", **extra, live_scores=live_pairs,
+         exp_ms=live_pairs / _mufu_ex2_per_s() * 1e3,
+         mma_over_library=wide["ms"] / wide["library_ms"], **wide)
+    return row, wide
 
 
 FILTER_CS = (1, 2, 4, 8)
@@ -963,122 +1036,502 @@ def _device_split(prof) -> dict:
     return {**split, "kernel_calls": calls}
 
 
-def phase_scan(seed: int) -> tuple[int, int]:
-    """The predicate read path on three tables written by the port's writer;
-    returns the filter's and the dequant kernel's launches in the ads
-    table's serial scan."""
+def phase_scan(seed: int, tmp: str) -> tuple[int, int]:
+    """The predicate read path on three tables written by the port's writer
+    into ``tmp`` (where the later phases find them); returns the filter's
+    and the dequant kernel's launches in the ads table's serial scan."""
     from repro_torch.data import (write_ads_table, write_lm_corpus,
                                   write_quant_table)
     from repro_torch.dataset import dataset
     from repro_torch.obs import trace
     from torch.profiler import ProfilerActivity, profile
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_scan_")
     main_launches = None
-    try:
-        paths = {"ads": os.path.join(tmp, "ads.bln"),
-                 "lm_corpus": os.path.join(tmp, "lm.bln"),
-                 "quant": os.path.join(tmp, "quant.bln")}
-        for name, path in paths.items():
+    paths = scan_paths(tmp)
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        if name == "ads":
+            write_ads_table(path, seed=seed, **ADS)
+        elif name == "quant":
+            write_quant_table(path, seed=seed, **QUANT)
+        else:
+            write_lm_corpus(path, seed=seed)
+        emit("scan", table=name, write_s=time.perf_counter() - t0,
+             file_bytes=os.path.getsize(path),
+             config={"ads": ADS, "quant": QUANT}.get(
+                 name, "write_lm_corpus defaults"),
+             reduced=["n_sparse 32 -> 0"] if name == "ads" else [])
+
+    for query, table, cols, pred, dequantized, want_dq in _scan_queries():
+        path = paths[table]
+        ds = dataset(path, device="cuda").select(cols).where(pred) \
+            .dequantized(dequantized)
+        groups = _evaluated_groups(ds)
+        ds.to_table()                                  # warm-up
+        runs = {}
+        for label, kw in (("serial", {}),
+                          ("parallel", dict(parallelism=4, io_depth=2))):
+            zero_counts()
+            got = ds.to_table(**kw)                     # the main path
+            launched = counts()
+            check(launched == dict(flash_attention=0, range_mask=groups,
+                                   dequant=0, dequant_packed=want_dq,
+                                   bitunpack=0),
+                  f"{query} {label}: launched {launched}, expected the "
+                  f"filter once for each of {groups} evaluated row "
+                  f"groups and the column-list dequant {want_dq} times")
+            runs[label] = (got, launched)
+            if query == "ads" and label == "serial":
+                main_launches = launched
+        plain = dataset(path, device="cuda").select(cols).where(pred) \
+            .dequantized(dequantized)._with_kernel(False)
+        want, want_ids = plain.to_table(), plain.row_ids()
+        n_out = len(want_ids)
+        check(0 < n_out < ds.num_rows, f"{query}: {n_out} rows kept")
+        check(np.array_equal(ds.row_ids(), want_ids),
+              f"{query}: row ids differ from the NumPy route")
+        for label, (got, _) in runs.items():
+            check(_same_table(got, want),
+                  f"{query} {label}: columns differ from the NumPy route")
+            check(all(len(v) == n_out for v in got.values()),
+                  f"{query} {label}: column lengths")
+
+        size = os.path.getsize(path)
+        times = {}
+        for label, kw in (("serial", {}),
+                          ("parallel", dict(parallelism=4, io_depth=2))):
+            samples = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                ds.to_table(**kw)
+                samples.append(time.perf_counter() - t0)
+            times[label] = float(np.median(samples))
+        with trace.collect() as tracer:
             t0 = time.perf_counter()
-            if name == "ads":
-                write_ads_table(path, seed=seed, **ADS)
-            elif name == "quant":
-                write_quant_table(path, seed=seed, **QUANT)
+            ds.to_table()
+            traced_s = time.perf_counter() - t0
+        stages = {k: {"calls": a.count, "ms": a.seconds * 1e3}
+                  for k, a in sorted(tracer.aggregate().items())}
+        # decode ms by column; dequantize ms by call, keyed by its route
+        # and its column list
+        by_column: dict = {}
+        for rec in tracer.spans:
+            if rec.name == "decode.decode":
+                key = f"decode:{rec.args.get('column')}"
+            elif rec.name == "decode.dequantize":
+                key = (f"dequantize:{rec.args.get('route')}:"
+                       + "+".join(rec.args.get("columns", ())))
             else:
-                write_lm_corpus(path, seed=seed)
-            emit("scan", table=name, write_s=time.perf_counter() - t0,
-                 file_bytes=os.path.getsize(path),
-                 config={"ads": ADS, "quant": QUANT}.get(
-                     name, "write_lm_corpus defaults"),
-                 reduced=["n_sparse 32 -> 0"] if name == "ads" else [])
-
-        for query, table, cols, pred, dequantized, want_dq in _scan_queries():
-            path = paths[table]
-            ds = dataset(path, device="cuda").select(cols).where(pred) \
-                .dequantized(dequantized)
-            groups = sum(1 for t in ds.physical_plan().tasks
-                         if t.pages is None or len(t.pages))
-            ds.to_table()                                  # warm-up
-            runs = {}
-            for label, kw in (("serial", {}),
-                              ("parallel", dict(parallelism=4, io_depth=2))):
-                zero_counts()
-                got = ds.to_table(**kw)                     # the main path
-                launched = counts()
-                check(launched == dict(flash_attention=0, range_mask=groups,
-                                       dequant=0, dequant_packed=want_dq,
-                                       bitunpack=0),
-                      f"{query} {label}: launched {launched}, expected the "
-                      f"filter once for each of {groups} evaluated row "
-                      f"groups and the column-list dequant {want_dq} times")
-                runs[label] = (got, launched)
-                if query == "ads" and label == "serial":
-                    main_launches = launched
-            plain = dataset(path, device="cuda").select(cols).where(pred) \
-                .dequantized(dequantized)._with_kernel(False)
-            want, want_ids = plain.to_table(), plain.row_ids()
-            n_out = len(want_ids)
-            check(0 < n_out < ds.num_rows, f"{query}: {n_out} rows kept")
-            check(np.array_equal(ds.row_ids(), want_ids),
-                  f"{query}: row ids differ from the NumPy route")
-            for label, (got, _) in runs.items():
-                check(_same_table(got, want),
-                      f"{query} {label}: columns differ from the NumPy route")
-                check(all(len(v) == n_out for v in got.values()),
-                      f"{query} {label}: column lengths")
-
-            size = os.path.getsize(path)
-            times = {}
-            for label, kw in (("serial", {}),
-                              ("parallel", dict(parallelism=4, io_depth=2))):
-                samples = []
-                for _ in range(5):
-                    t0 = time.perf_counter()
-                    ds.to_table(**kw)
-                    samples.append(time.perf_counter() - t0)
-                times[label] = float(np.median(samples))
-            with trace.collect() as tracer:
-                t0 = time.perf_counter()
-                ds.to_table()
-                traced_s = time.perf_counter() - t0
-            stages = {k: {"calls": a.count, "ms": a.seconds * 1e3}
-                      for k, a in sorted(tracer.aggregate().items())}
-            # decode ms by column; dequantize ms by call, keyed by its route
-            # and its column list
-            by_column: dict = {}
-            for rec in tracer.spans:
-                if rec.name == "decode.decode":
-                    key = f"decode:{rec.args.get('column')}"
-                elif rec.name == "decode.dequantize":
-                    key = (f"dequantize:{rec.args.get('route')}:"
-                           + "+".join(rec.args.get("columns", ())))
-                else:
-                    continue
-                by_column[key] = by_column.get(key, 0.0) + rec.dur * 1e3
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                ds.to_table()
-                profiled_s = time.perf_counter() - t0
-            emit("scan", query=query, table=table, columns=len(cols),
-                 predicate=repr(pred), dequantized=dequantized,
-                 rows=ds.num_rows, rows_out=n_out, row_groups=groups,
-                 launches_serial=runs["serial"][1],
-                 launches_parallel=runs["parallel"][1],
-                 equal_to_numpy_route=True,
-                 scan_ms=times["serial"] * 1e3,
-                 rows_per_s=ds.num_rows / times["serial"],
-                 file_bytes_per_s=size / times["serial"],
-                 scan_ms_parallel4_io2=times["parallel"] * 1e3,
-                 rows_per_s_parallel4_io2=ds.num_rows / times["parallel"],
-                 file_bytes_per_s_parallel4_io2=size / times["parallel"],
-                 traced_ms=traced_s * 1e3, host_stages=stages,
-                 host_ms_by_column=by_column,
-                 profiled_ms=profiled_s * 1e3, device=_device_split(prof))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+                continue
+            by_column[key] = by_column.get(key, 0.0) + rec.dur * 1e3
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            ds.to_table()
+            profiled_s = time.perf_counter() - t0
+        emit("scan", query=query, table=table, columns=len(cols),
+             predicate=repr(pred), dequantized=dequantized,
+             rows=ds.num_rows, rows_out=n_out, row_groups=groups,
+             launches_serial=runs["serial"][1],
+             launches_parallel=runs["parallel"][1],
+             equal_to_numpy_route=True,
+             scan_ms=times["serial"] * 1e3,
+             rows_per_s=ds.num_rows / times["serial"],
+             file_bytes_per_s=size / times["serial"],
+             scan_ms_parallel4_io2=times["parallel"] * 1e3,
+             rows_per_s_parallel4_io2=ds.num_rows / times["parallel"],
+             file_bytes_per_s_parallel4_io2=size / times["parallel"],
+             traced_ms=traced_s * 1e3, host_stages=stages,
+             host_ms_by_column=by_column,
+             profiled_ms=profiled_s * 1e3, device=_device_split(prof))
     return main_launches["range_mask"], main_launches["dequant_packed"]
+
+
+def scan_paths(tmp: str) -> dict:
+    return {"ads": os.path.join(tmp, "ads.bln"),
+            "lm_corpus": os.path.join(tmp, "lm.bln"),
+            "quant": os.path.join(tmp, "quant.bln")}
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _evaluated_groups(ds) -> int:
+    """Row groups a plan evaluates its predicate on: its tasks that kept
+    pages after pruning (the filter launches once for each)."""
+    return sum(1 for t in ds.physical_plan().tasks
+               if t.pages is None or len(t.pages))
+
+
+def _ads_victim_cases(ads: str):
+    """(case, predicate, level, audit column, forbidden values, expected
+    launches (filter, dequant) on the card) for phase compliance: a float32
+    range over two dense features (the range filter's route, about 35 rows
+    scattered over every group) at L2 and L1, and 16 users from the middle
+    of the id range (the per-user case of benchmarks/bench_deletion.py;
+    In over int64, the NumPy route)."""
+    from repro_torch.dataset import dataset
+    from repro_torch.scan import C, In
+    rng_pred = (C("dense_4") >= 3.0) & (C("dense_5") >= 2.5)
+    with dataset(ads, device="cuda") as ds:
+        victims_ts = ds.where(rng_pred).select(["ts"]).to_table()["ts"]
+        groups = _evaluated_groups(ds.where(rng_pred).drop_deleted(False))
+        uid = ds.select(["user_id"]).to_table()["user_id"]
+    users = np.unique(uid)
+    users = users[len(users) // 2:len(users) // 2 + 16]
+    return [("range_l2", rng_pred, 2, "ts", victims_ts, (groups, groups)),
+            ("range_l1", rng_pred, 1, "ts", victims_ts, (groups, groups)),
+            ("users_l2", In("user_id", users.tolist()), 2, "user_id", users,
+             (0, 0))]
+
+
+def phase_compliance(tmp: str) -> dict:
+    """``delete_where`` on copies of phase scan's ads table, each delete on
+    the card and again with device="cpu": the files byte-identical, the
+    audit (``verify_deleted``) clean, a reopened scan short of exactly the
+    deleted rows, the filter (and the dequantize of the predicate's BF16
+    columns) launched once a row group evaluated. Returns the launches of
+    each kernel by case and the range delete's victims (their ``ts``), and
+    leaves the range-L1 copy for phase sink."""
+    from repro_torch.core import Compliance, delete_where, verify_deleted
+    from repro_torch.dataset import dataset
+    ads = scan_paths(tmp)["ads"]
+    with dataset(ads, device="cuda") as ds:
+        rows_before = ds.count_rows()
+    launched = {}
+    cases = _ads_victim_cases(ads)
+    for case, pred, level, col, forbidden, (want_f, want_dq) in cases:
+        on_card = os.path.join(tmp, f"del_{case}.bln")
+        on_cpu = os.path.join(tmp, f"del_{case}_cpu.bln")
+        shutil.copyfile(ads, on_card)
+        shutil.copyfile(ads, on_cpu)
+        zero_counts()
+        t0 = time.perf_counter()
+        st = delete_where(on_card, pred, Compliance(level), device="cuda")
+        host_s = time.perf_counter() - t0
+        got = counts()
+        t0 = time.perf_counter()
+        st_cpu = delete_where(on_cpu, pred, Compliance(level), device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(got == dict(flash_attention=0, range_mask=want_f, dequant=0,
+                          dequant_packed=want_dq, bitunpack=0),
+              f"compliance {case}: launched {got}, expected the filter "
+              f"{want_f} times and the column-list dequant {want_dq}")
+        check(st == st_cpu, f"compliance {case}: {st} != {st_cpu} (cpu)")
+        check(_sha256(on_card) == _sha256(on_cpu),
+              f"compliance {case}: the file differs from the cpu route's")
+        os.unlink(on_cpu)
+        check(st.rows_deleted > 0 and
+              (col != "ts" or st.rows_deleted == len(forbidden)),
+              f"compliance {case}: {st.rows_deleted} rows deleted, "
+              f"{len(forbidden)} matched")
+        audit = verify_deleted(on_card, col, forbidden, device="cuda")
+        check(audit["visible_rows"] == 0 and
+              (audit["raw_occurrences"] == 0 if level == 2
+               else audit["raw_occurrences"] > 0),
+              f"compliance {case}: audit {audit}")
+        with dataset(on_card, device="cuda") as ds:
+            rows_after = ds.count_rows()
+            left = ds.where(pred).count_rows()
+        check(rows_after == rows_before - st.rows_deleted and left == 0,
+              f"compliance {case}: {rows_after} rows, {left} matching, "
+              f"after deleting {st.rows_deleted} of {rows_before}")
+        emit("compliance", case=case, predicate=repr(pred), level=level,
+             stats=dataclasses.asdict(st),
+             data_io_ratio=st.bytes_rewritten_data / st.bytes_full_rewrite,
+             io_ratio=st.bytes_rewritten / st.bytes_full_rewrite,
+             host_ms=host_s * 1e3, cpu_route_host_ms=cpu_s * 1e3,
+             launches=got, audit=audit, rows_before=rows_before,
+             rows_after=rows_after, identical_to_cpu_route=True)
+        launched[case] = got
+        if case != "range_l1":
+            os.unlink(on_card)
+    return launched, cases[0][4]
+
+
+def _read_all(path: str) -> dict:
+    from repro_torch.dataset import dataset
+    with dataset(path, device="cuda") as ds:
+        return ds.to_table()
+
+
+def phase_sink(tmp: str, victims) -> dict:
+    """``write_to`` of phase scan's ads query, dequantized, sorted by
+    dense_0 into shards of 2**19 rows, on the card and with device="cpu":
+    the shards byte-identical, read back equal to the scan's table sorted,
+    the kernels launched by phase scan's rule. Then the sink of the range-L1
+    copy of phase compliance, whose audit finds no raw occurrence."""
+    from repro_torch.core import verify_deleted
+    from repro_torch.dataset import dataset
+    ads = scan_paths(tmp)["ads"]
+    _, _, cols, pred, _, want_dq = _scan_queries()[0]
+    with dataset(ads, device="cuda") as ds:
+        groups = _evaluated_groups(ds.where(pred))
+        want = ds.select(cols).where(pred).to_table()
+    perm = np.argsort(want["dense_0"], kind="stable")
+    want = {k: v[perm] for k, v in want.items()}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"sink_{dev}")
+        zero_counts()
+        t0 = time.perf_counter()
+        with dataset(ads, device=dev) as ds:
+            res = ds.where(pred).dequantized().write_to(
+                out, sort_by="dense_0", shard_rows=SINK_SHARD_ROWS)
+        outs[dev] = (out, res, time.perf_counter() - t0, counts())
+    out, res, host_s, got = outs["cuda"]
+    check(got == dict(flash_attention=0, range_mask=groups, dequant=0,
+                      dequant_packed=want_dq, bitunpack=0),
+          f"sink: launched {got}, expected the filter {groups} times and the "
+          f"column-list dequant {want_dq}")
+    check(outs["cpu"][3] == dict.fromkeys(got, 0), "sink: the cpu route "
+          f"launched {outs['cpu'][3]}")
+    check(dataclasses.asdict(res) | {"paths": None} ==
+          dataclasses.asdict(outs["cpu"][1]) | {"paths": None},
+          f"sink: {res} != {outs['cpu'][1]} (cpu)")
+    check(res.rows == len(want["ts"]) and
+          res.shards == -(-res.rows // SINK_SHARD_ROWS),
+          f"sink: {res.rows} rows in {res.shards} shards")
+    for a, b in zip(res.paths, outs["cpu"][1].paths):
+        check(_sha256(a) == _sha256(b),
+              f"sink: {os.path.basename(a)} differs from the cpu route's")
+    check(_same_table(_read_all(out), want),
+          "sink: the shards read back differ from the scan's table sorted")
+    emit("sink", plan=f"where({pred!r}).dequantized()", sort_by="dense_0",
+         shard_rows=SINK_SHARD_ROWS, result={k: v for k, v in
+                                   dataclasses.asdict(res).items()
+                                   if k != "paths"},
+         host_ms=host_s * 1e3, cpu_route_host_ms=outs["cpu"][2] * 1e3,
+         launches=got, identical_to_cpu_route=True)
+
+    # the sink purges rows an L1 delete kept on disk
+    deleted = os.path.join(tmp, "del_range_l1.bln")
+    kept = verify_deleted(deleted, "ts", victims, device="cuda")
+    out = os.path.join(tmp, "sink_purge")
+    t0 = time.perf_counter()
+    with dataset(deleted, device="cuda") as ds:
+        res = ds.select(["user_id", "ts"]).write_to(out)
+    host_s = time.perf_counter() - t0
+    audits = [verify_deleted(p, "ts", victims, device="cuda")
+              for p in res.paths]
+    check(kept["raw_occurrences"] == len(victims) > 0 and
+          all(a == {"visible_rows": 0, "raw_occurrences": 0} for a in audits),
+          f"sink purge: before {kept}, after {audits}")
+    emit("sink", case="purge_l1_deleted_copy", columns=["user_id", "ts"],
+         rows=res.rows, raw_occurrences_before=kept["raw_occurrences"],
+         audits=audits, host_ms=host_s * 1e3)
+    for d in ("sink_cuda", "sink_cpu", "sink_purge"):
+        shutil.rmtree(os.path.join(tmp, d))
+    os.unlink(deleted)
+    return got
+
+
+LOADER = dict(batch_size=8, seq_len=2048, prefetch=2)
+LOADER_CORPUS = dict(n_docs=8192)       # 8 Mi tokens: 128 groups of 64 rows
+LOADER_BATCHES, LOADER_RESUME_AT = 96, 40   # of about 128 a rank an epoch
+SINK_SHARD_ROWS = 2**19
+
+
+def _take(loader, n: int) -> list:
+    it = iter(loader)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        loader.close()
+
+
+def _same_batches(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype == np.int32 and np.array_equal(x, y) and c == d
+        for (x, c), (y, d) in zip(a, b))
+
+
+def phase_loader(seed: int, tmp: str) -> dict:
+    """``BullionLoader(predicate=C("quality") >= 0.5)`` over an LM corpus of
+    8 Mi tokens as rank 0 and rank 1 of 2, on the card against the
+    device="cpu" loader; a resume from a mid-epoch cursor; the filter's
+    launches while the loader's thread and a main-thread scan read at once;
+    and ``quality_filtered_read`` against its cpu route."""
+    from repro_torch.core import (MultimodalSample, quality_filtered_read,
+                                  write_multimodal_dataset)
+    from repro_torch.data import BullionLoader, LoaderState, write_lm_corpus
+    from repro_torch.dataset import clear_footer_cache, dataset
+    from repro_torch.scan import C
+    corpus = os.path.join(tmp, "loader_corpus.bln")
+    t0 = time.perf_counter()
+    write_lm_corpus(corpus, seed=seed, **LOADER_CORPUS)
+    write_s = time.perf_counter() - t0
+    pred = C("quality") >= 0.5
+    n_batches, resume_at = LOADER_BATCHES, LOADER_RESUME_AT
+    tokens = n_batches * LOADER["batch_size"] * (LOADER["seq_len"] + 1)
+    for rank in (0, 1):
+        kw = dict(LOADER, rank=rank, world=2, predicate=pred)
+        t0 = time.perf_counter()
+        got = _take(BullionLoader(corpus, device="cuda", **kw), n_batches)
+        card_s = time.perf_counter() - t0
+        want = _take(BullionLoader(corpus, device="cpu", **kw), n_batches)
+        check(_same_batches(got, want),
+              f"loader rank {rank}: batches differ from the cpu loader's")
+        cur = got[resume_at][1]
+        state = LoaderState(cur.epoch, cur.group)
+        resumed = _take(BullionLoader(corpus, device="cuda", state=state,
+                                      **kw), 8)
+        resumed_cpu = _take(BullionLoader(corpus, device="cpu",
+                                          state=LoaderState(cur.epoch,
+                                                            cur.group),
+                                          **kw), 8)
+        check(_same_batches(resumed, resumed_cpu),
+              f"loader rank {rank}: the resumed batches differ")
+        emit("loader", rank=rank, world=2, **LOADER, predicate=repr(pred),
+             batches=n_batches, tokens=tokens,
+             tokens_per_s=tokens / card_s, host_s=card_s,
+             resumed_from=dataclasses.asdict(cur),
+             equal_to_cpu_route=True, corpus=LOADER_CORPUS,
+             corpus_write_s=write_s)
+
+    # the loader's prefetch thread and a main-thread scan launch at once
+    loader = BullionLoader(corpus, device="cuda", rank=0, world=2,
+                           predicate=pred, **LOADER)
+    reads, read_group = [], loader._read_group
+
+    def counted(g, reader=None):
+        reads.append(g)
+        return read_group(g, reader)
+
+    loader._read_group = counted
+    with dataset(corpus, device="cuda").where(pred) as ds:
+        scan_groups = _evaluated_groups(ds)
+        want_scan = dataset(corpus, device="cpu").where(pred).to_table()
+        zero_counts()
+        it = iter(loader)
+        batches, scans = [], 0
+        for i in range(n_batches):
+            batches.append(next(it))
+            if i % 24 == 0:
+                check(_same_table(ds.to_table(), want_scan),
+                      "loader: a scan beside the loader's thread differs")
+                scans += 1
+        loader.close()
+        got = counts()
+    check(got["range_mask"] == len(reads) + scans * scan_groups and
+          got["dequant_packed"] == 0,
+          f"loader: launched {got} while the loader read {len(reads)} groups "
+          f"and {scans} scans {scan_groups} groups each")
+    check(_same_batches(batches, _take(BullionLoader(
+        corpus, device="cpu", rank=0, world=2, predicate=pred, **LOADER),
+        n_batches)), "loader: batches beside a scan differ")
+    emit("loader", case="thread_and_main_thread_scan",
+         loader_groups_read=len(reads), scans=scans, scan_groups=scan_groups,
+         launches=got)
+    os.unlink(corpus)
+
+    # quality-aware multimodal reads
+    rng = np.random.default_rng(seed)
+    samples = [MultimodalSample(
+        text=b"caption %d" % i, quality=float(rng.random()),
+        embedding=rng.normal(size=64).astype(np.float32),
+        frames=rng.bytes(256), media_key=i) for i in range(4096)]
+    meta = os.path.join(tmp, "mm.bln")
+    write_multimodal_dataset(meta, os.path.join(tmp, "mm.media"), samples,
+                             rows_per_group=256)
+    for frac in (0.1, 0.5):
+        # each read opens the file afresh: a cached footer, or pages already
+        # verified in this process, would change its I/O counters
+        clear_footer_cache()
+        t0 = time.perf_counter()
+        tables, io = quality_filtered_read(
+            meta, ["text", "quality", "embedding"], frac, device="cuda")
+        host_s = time.perf_counter() - t0
+        clear_footer_cache()
+        cpu_tables, cpu_io = quality_filtered_read(
+            meta, ["text", "quality", "embedding"], frac, device="cpu")
+        same_io = {k: v for k, v in dataclasses.asdict(io).items()
+                   if k != "metadata_seconds"} == \
+            {k: v for k, v in dataclasses.asdict(cpu_io).items()
+             if k != "metadata_seconds"}
+        check(len(tables) == len(cpu_tables) and all(
+            _same_table(a, b) for a, b in zip(tables, cpu_tables)) and same_io,
+            f"quality_filtered_read {frac}: differs from the cpu route")
+        rows = sum(len(t["quality"]) for t in tables)
+        check(rows == int(len(samples) * frac), f"{rows} rows at {frac}")
+        emit("loader", case="quality_filtered_read", samples=len(samples),
+             top_fraction=frac, rows=rows, host_ms=host_s * 1e3,
+             bytes_read=io.bytes_read, bytes_pruned=io.bytes_pruned,
+             equal_to_cpu_route=True)
+    return got
+
+
+def phase_export(tmp: str) -> None:
+    """``Dataset.profile(path)`` over phase scan's ads query writes a Chrome
+    trace with the decode and filter spans; a fresh interpreter with
+    ``BULLION_TRACE`` set writes its trace at exit; the metrics snapshot
+    renders as Prometheus text that parses back to the same values."""
+    from repro_torch.dataset import dataset
+    from repro_torch.obs import metrics, parse_prometheus_text, prometheus_text
+    from repro_torch.obs.expose import sanitize_name
+    paths = scan_paths(tmp)
+    _, _, cols, pred, _, _ = _scan_queries()[0]
+    out = os.path.join(tmp, "profile.json")
+    t0 = time.perf_counter()
+    with dataset(paths["ads"], device="cuda") as ds:
+        prof = ds.select(cols).where(pred).profile(out)
+    profile_s = time.perf_counter() - t0
+    with open(out) as f:
+        doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    need = {"exec.task", "exec.filter", "decode.pread", "decode.decode",
+            "decode.dequantize"}
+    check(need <= names, f"profile: spans {sorted(names)} lack "
+          f"{sorted(need - names)}")
+    kernel_spans = [e for e in doc["traceEvents"]
+                    if e["name"] == "decode.dequantize"
+                    and e["args"].get("route") == "kernel"]
+    check(len(kernel_spans) == 8, f"profile: {len(kernel_spans)} kernel "
+          "dequantize spans, expected 8")
+
+    env_trace = os.path.join(tmp, "env_trace.json")
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from repro_torch.dataset import dataset\n"
+            "from repro_torch.scan import C\n"
+            "with dataset(%r, device='cuda') as ds:\n"
+            "    ds.where(C('quality') >= 0.5).to_table(io_depth=2)\n"
+            % (str(ROOT / "src"), paths["lm_corpus"]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, BULLION_TRACE=env_trace))
+    env_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"BULLION_TRACE run: {proc.stderr[-2000:]}")
+    check("BULLION_TRACE export" not in proc.stderr,
+          f"BULLION_TRACE: {proc.stderr}")
+    with open(env_trace) as f:
+        env_names = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"}
+    check({"plan.optimize", "plan.lower", "exec.task",
+           "exec.filter"} <= env_names,
+          f"BULLION_TRACE: spans {sorted(env_names)}")
+
+    snap = metrics.snapshot()
+    parsed = parse_prometheus_text(prometheus_text(snap))
+    for name, v in snap.items():
+        key = sanitize_name(name)
+        if isinstance(v, dict):
+            check(parsed[f"{key}_count"] == v["count"] and
+                  parsed[f"{key}_sum"] == float(v["sum"]),
+                  f"prometheus: {name} {v}")
+        else:
+            check(parsed[key] == float(v), f"prometheus: {name} {v}")
+    emit("export", profile_spans=len(prof.spans), profile_dropped=prof.dropped,
+         profile_bytes=os.path.getsize(out), profile_ms=profile_s * 1e3,
+         span_names=sorted(names), env_trace_spans=len(env_names),
+         env_trace_run_s=env_s, metrics=len(snap),
+         prometheus_samples=len(parsed))
 
 
 # Key of a time taken by CUDA events (``_event_us``) where the profiler
@@ -1340,7 +1793,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t0 = time.perf_counter()
     phase_build()
-    serve_err = phase_kernels(args.seed)
+    serve_err, wide_err = phase_kernels(args.seed)
     filter_err = phase_filter_kernels(args.seed)
     dequant_err = phase_dequant_kernels(args.seed)
     bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
@@ -1349,32 +1802,62 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     phase_logits(args.seed, gen)
-    row = phase_times(args.seed)
+    row, wide = phase_times(args.seed)
     filter_row = phase_filter_times(args.seed)
     dequant_row = phase_dequant_times(args.seed)
     bitunpack_row = phase_bitunpack_times(args.seed)
-    scan_launches, dequant_launches = phase_scan(args.seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tables_")
+    phase_s = {}      # host seconds of the read phases, for the time limit
+
+    def timed(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t1
+        return out
+
+    try:
+        scan_launches, dequant_launches = timed("scan", phase_scan,
+                                                args.seed, tmp)
+        compliance_launches, victims = timed("compliance", phase_compliance,
+                                             tmp)
+        sink_launches = timed("sink", phase_sink, tmp, victims)
+        loader_launches = timed("loader", phase_loader, args.seed, tmp)
+        timed("export", phase_export, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_phase = {"scan_ads": {"range_mask": scan_launches,
+                             "dequant_packed": dequant_launches},
+                **{f"compliance_{case}": launched for case, launched
+                   in compliance_launches.items()},
+                "sink": sink_launches, "loader": loader_launches}
     print(json.dumps({"kernels": [
         dict(name="flash_attention", route="cuda", body="wgmma",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:91",
-             launches=launches, max_abs_err=serve_err, **row),
+             launches=launches, max_abs_err=serve_err, **row,
+             d256=dict(body="mma", shape=[WIDE_CASE[k] for k in "B H Hkv S D"
+                                          .split()],
+                       max_abs_err=wide_err, **wide)),
         dict(name="range_mask", route="cuda",
              source="src/repro_torch/csrc/filter.cu",
              replaces="src/repro/kernels/filter/kernel.py:31",
              launches=scan_launches, max_abs_err=float(filter_err),
+             launches_by_phase={k: v["range_mask"]
+                                for k, v in by_phase.items()},
              **filter_row),
         dict(name="dequant", route="cuda", body="columns",
              source="src/repro_torch/csrc/dequant.cu",
              replaces="src/repro/kernels/dequant/kernel.py:38",
              launches=dequant_launches, max_abs_err=dequant_err,
+             launches_by_phase={k: v["dequant_packed"]
+                                for k, v in by_phase.items()},
              **dequant_row),
         dict(name="bitunpack", route="cuda",
              source="src/repro_torch/csrc/bitunpack.cu",
              replaces="src/repro/kernels/bitunpack/kernel.py:33",
              launches=bitunpack_launches, max_abs_err=bitunpack_err,
              **bitunpack_row)]}), flush=True)
-    emit("done", seconds=time.perf_counter() - t0)
+    emit("done", seconds=time.perf_counter() - t0, read_phase_s=phase_s)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,12 @@ filter in a hand-written CUDA kernel (``kernels.filter``, source
 dequantize of BF16 and affine-integer columns in a hand-written CUDA kernel
 (``kernels.dequant``, ``csrc/dequant.cu``), and the BP32 unpack as an entry
 point of its own, ``kernels.bitunpack.{pack_bp32, bitunpack}``
-(``csrc/bitunpack.cu``).
+(``csrc/bitunpack.cu``). The fourth adds what is built on that read:
+deletion compliance (``core.deletion``, ``Dataset.delete_where``), the write
+sink (``dataset.sink``, ``Dataset.write_to``), quality-aware multimodal
+reads (``core.multimodal``), trace export (``obs.export``, ``obs.expose``)
+and the training-data loader (``data.loader.BullionLoader``), all through
+the same filter and dequant kernels.
 
 Every entry point takes a ``device``. The default is ``"cuda"``, and where
 CUDA is absent the call raises: nothing falls back to the CPU unless the

@@ -39,11 +39,17 @@
 //     edge or the window edge, and four warpgroups an SM (two blocks at
 //     D <= 64) let one warpgroup's exp2 run under another's products.
 //     Causal q-tiles are issued heaviest first.
-//   * flash_fwd_mma (bf16, any other layout, e.g. D = 100): mma.sync
-//     m16n8k16 tensor-core products, one warp per 16 query rows, loads
-//     through registers.
-//   * flash_fwd_simt (f32): products in f32 FMA, so an f32 call stays within
-//     f32 rounding of the reference (tensor-core TF32 would not).
+//   * flash_fwd_mma (bf16, any other layout, e.g. D = 100, and every
+//     128 < D <= 256): mma.sync m16n8k16 tensor-core products, one warp per
+//     16 query rows, loads through registers. D is zero-padded to DP = 64,
+//     128 or 256. At DP = 256 a warp's output accumulator alone takes 128
+//     registers a thread, so its Q fragments are read from shared memory at
+//     each k-step instead of being held (64 registers more would spill).
+//   * flash_fwd_simt (f32, D <= 256): products in f32 FMA, so an f32 call
+//     stays within f32 rounding of the reference (tensor-core TF32 would
+//     not). A lane owns DCH = 4 output dims (D <= 128) or 8 (D <= 256).
+// D > 256 is refused: the reference pads D to any multiple of 128, but no
+// configuration of the repo has a head dim above 256.
 // The tensor-core bodies cast P to bf16 before the PV product, as the
 // reference casts probabilities to v.dtype.
 //
@@ -111,8 +117,8 @@ constexpr int S_BQ = 32;                 // query rows per block
 constexpr int S_BK = 64;                 // keys per tile: two per lane
 constexpr int S_WARPS = 4;
 constexpr int S_RPW = S_BQ / S_WARPS;    // query rows per warp
-constexpr int DMAX = 128;
-constexpr int S_DCH = DMAX / 32;         // output dims per lane
+constexpr int DMAX = 256;               // every body but wgmma
+constexpr int W_DMAX = 128;              // the wgmma body's register budget
 
 size_t simt_smem(int D) {
   // Qs [BQ][D], Kt [D][BK+1] (transposed, padded: conflict-free both ways),
@@ -121,6 +127,8 @@ size_t simt_smem(int D) {
          (size_t)(S_BQ * D + D * (S_BK + 1) + S_BK * D + S_WARPS * S_RPW * S_BK);
 }
 
+// DCH: output dims per lane, so the body takes D <= 32 * DCH.
+template <int DCH>
 __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
   extern __shared__ float smem[];
   const int D = a.D;
@@ -146,13 +154,13 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
   kv_range(a, q0, S_BQ, S_BK, &kv_start, &kv_end);
 
   const int r0 = warp * S_RPW;
-  float m[S_RPW], l[S_RPW], acc[S_RPW][S_DCH];
+  float m[S_RPW], l[S_RPW], acc[S_RPW][DCH];
 #pragma unroll
   for (int r = 0; r < S_RPW; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < S_DCH; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
   }
   float* P = Ps + r0 * S_BK;
 
@@ -193,7 +201,7 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < S_DCH; ++c) acc[r][c] *= alpha;
+      for (int c = 0; c < DCH; ++c) acc[r][c] *= alpha;
       P[r * S_BK + lane] = p0;
       P[r * S_BK + lane + 32] = p1;
     }
@@ -201,9 +209,9 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
 
 #pragma unroll 4
     for (int j = 0; j < S_BK; ++j) {
-      float vv[S_DCH];
+      float vv[DCH];
 #pragma unroll
-      for (int c = 0; c < S_DCH; ++c) {
+      for (int c = 0; c < DCH; ++c) {
         const int d = lane + 32 * c;
         vv[c] = d < D ? Vs[j * D + d] : 0.f;
       }
@@ -211,7 +219,7 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
       for (int r = 0; r < S_RPW; ++r) {
         const float p = P[r * S_BK + j];
 #pragma unroll
-        for (int c = 0; c < S_DCH; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+        for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
       }
     }
     __syncwarp();
@@ -223,7 +231,7 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
     if (qi >= a.S) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no live key: 0
 #pragma unroll
-    for (int c = 0; c < S_DCH; ++c) {
+    for (int c = 0; c < DCH; ++c) {
       const int d = lane + 32 * c;
       if (d < D) o[(size_t)qi * a.oss + d] = acc[r][c] * inv;
     }
@@ -232,13 +240,16 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
 
 // Shared memory above 48 KB needs the attribute, set on the current device
 // before each launch (cheap, and right for whichever device is current).
+// At D = 256 a block takes 169 KB (one block an SM).
+template <int DCH>
 cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   const size_t smem = simt_smem(a.D);
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_simt<DCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.S + S_BQ - 1) / S_BQ, a.H, a.B);
-  flash_fwd_simt<<<grid, S_WARPS * 32, smem, stream>>>(a);
+  flash_fwd_simt<DCH><<<grid, S_WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -252,7 +263,7 @@ constexpr int M_WARPS = 4;
 
 // Tiles are [rows][DP + 8] bf16: D zero-padded to DP (a multiple of 16, the
 // mma depth), and 8 more so that the fragment loads of one warp hit 32
-// distinct banks.
+// distinct banks. DP = 256 takes (64 + 2 * 64) * 264 * 2 = 101,376 bytes.
 template <int DP>
 size_t mma_smem() {
   return sizeof(__nv_bfloat16) * (size_t)(M_BQ + 2 * M_BK) * (DP + 8);
@@ -275,6 +286,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
   return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// The A fragment of k-step ks for query rows qr and qr + 8 of a [rows][LD]
+// tile.
+template <int LD>
+__device__ __forceinline__ void q_frag(uint32_t f[4], const __nv_bfloat16* Qs,
+                                       int qr, int ks, int t) {
+  const __nv_bfloat16* p = Qs + qr * LD + ks * 16 + 2 * t;
+  f[0] = *reinterpret_cast<const uint32_t*>(p);
+  f[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+  f[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  f[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
 }
 
 // Rows [r0, r0 + rows) of one head's [S, D] slice (row stride ss) into a
@@ -310,6 +333,8 @@ __global__ void __launch_bounds__(M_WARPS * 32)
     flash_fwd_mma(Args a, int vec8) {
   extern __shared__ __align__(16) unsigned char mma_smem_raw[];
   constexpr int LD = DP + 8, KS = DP / 16, DT = DP / 8, NT = M_BK / 8;
+  // Q's fragments live in registers up to DP = 128, else in shared memory
+  constexpr bool QREG = DP <= 128;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem_raw);
   __nv_bfloat16* Ks = Qs + M_BQ * LD;
   __nv_bfloat16* Vs = Ks + M_BK * LD;
@@ -327,16 +352,12 @@ __global__ void __launch_bounds__(M_WARPS * 32)
   load_tile<DP>(Qs, q, a.qss, q0, M_BQ, a.S, a.D, vec8);
   __syncthreads();
 
-  // This warp's 16 query rows as A fragments, kept in registers.
+  // This warp's 16 query rows as A fragments, kept in registers (QREG).
   const int qr = warp * 16 + g;
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* p = Qs + qr * LD + ks * 16 + 2 * t;
-    qf[ks][0] = *reinterpret_cast<const uint32_t*>(p);
-    qf[ks][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qf[ks][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qf[ks][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+    for (int ks = 0; ks < KS; ++ks) q_frag<LD>(qf[ks], Qs, qr, ks, t);
   }
 
   int kv_start, kv_end;
@@ -357,15 +378,25 @@ __global__ void __launch_bounds__(M_WARPS * 32)
     load_tile<DP>(Vs, v, a.vss, kt, M_BK, a.S, a.D, vec8);
     __syncthreads();
 
-    // S = Q K^T for 16 rows x 64 keys: NT tiles of 16 x 8.
+    // S = Q K^T for 16 rows x 64 keys: NT tiles of 16 x 8, a k-step at a
+    // time (Q's fragment of the step read once).
     float sacc[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt)
       sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qs[4];
+      if constexpr (QREG) {
+        qs[0] = qf[ks][0]; qs[1] = qf[ks][1];
+        qs[2] = qf[ks][2]; qs[3] = qf[ks][3];
+      } else {
+        q_frag<LD>(qs, Qs, qr, ks, t);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
         const bf16* p = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_bf16(sacc[nt], qf[ks], *reinterpret_cast<const uint32_t*>(p),
+        mma_bf16(sacc[nt], qs, *reinterpret_cast<const uint32_t*>(p),
                  *reinterpret_cast<const uint32_t*>(p + 8));
       }
     }
@@ -948,7 +979,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.scale_log2 = LOG2E / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (body == BODY_SIMT)
-    return dtype == 0 ? (int)launch_simt(a, st) : (int)cudaErrorInvalidValue;
+    return dtype != 0 ? (int)cudaErrorInvalidValue
+                      : (int)(D <= 128 ? launch_simt<4>(a, st)
+                                       : launch_simt<8>(a, st));
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int strides[] = {qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, osb, oss, osh};
@@ -957,12 +990,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     // 16-byte vector loads where every row of every operand starts aligned
     int vec8 = aligned && D % 8 == 0;
     for (int s : strides) vec8 = vec8 && s % 8 == 0;
-    return (int)(D <= 64 ? launch_mma<64>(a, vec8, st)
-                         : launch_mma<128>(a, vec8, st));
+    return (int)(D <= 64    ? launch_mma<64>(a, vec8, st)
+                 : D <= 128 ? launch_mma<128>(a, vec8, st)
+                            : launch_mma<256>(a, vec8, st));
   }
   if (body != BODY_WGMMA) return (int)cudaErrorInvalidValue;
   // TMA's rules: 16-byte-aligned bases and byte strides, whole 16-byte rows
-  bool takes = aligned && D % 8 == 0;
+  bool takes = aligned && D % 8 == 0 && D <= W_DMAX;
   for (int s : strides) takes = takes && s > 0 && s % 8 == 0;
   if (!takes) return (int)cudaErrorInvalidValue;
   return (int)(D <= 64 ? launch_wgmma<1, 2>(a, st) : launch_wgmma<2, 2>(a, st));

@@ -38,9 +38,6 @@ shims that build exactly these one-file plans):
     ``deletion.delete_where(path, p)``                       ``dataset(path).where(p).drop_deleted(False).row_ids()`` -> ``delete_rows``
     =======================================================  =====================================================================
 
-(The loader, ``quality_filtered_read``, deletion and the sink are not ported
-yet: ROADMAP.md §1, the next read slice.)
-
 Layout:
 
   plan.py      — ``LogicalPlan``/``OptimizedPlan``/``PhysicalPlan``/``ScanTask``,
@@ -55,6 +52,9 @@ Layout:
                  scheduling (``io_depth=`` on every terminal) — cross-task
                  pread coalescing and a prefetch thread that overlaps the
                  next tasks' reads with the current decode
+  sink.py      — ``write_dataset``/``WriteResult``: the plan-driven
+                 materialization sink behind ``Dataset.write_to`` (compaction
+                 / compliance purge, resharding, reclustering, re-encoding)
   core.py      — the chainable ``Dataset`` and the ``dataset()`` entry point
 """
 
@@ -63,6 +63,7 @@ from .executor import GroupResult, decode_group, execute_group, run_tasks
 from .io import IOScheduler, PrefetchReader
 from .plan import (LogicalPlan, OptimizedPlan, PhysicalPlan, ScanTask, lower,
                    optimize, split_conjuncts)
+from .sink import WriteResult, write_dataset
 from .source import (DataSource, SchemaMismatchError, cached_footer,
                      clear_footer_cache, discover, invalidate_cached_footer)
 
@@ -72,6 +73,6 @@ __all__ = [
     "GroupResult", "decode_group", "execute_group", "run_tasks",
     "IOScheduler", "PrefetchReader",
     "LogicalPlan", "OptimizedPlan", "PhysicalPlan", "ScanTask", "lower",
-    "optimize", "split_conjuncts",
+    "optimize", "split_conjuncts", "WriteResult", "write_dataset",
     "cached_footer", "clear_footer_cache", "invalidate_cached_footer",
 ]

@@ -511,11 +511,19 @@ class Dataset:
     def profile(self, path: Optional[str] = None, *,
                 parallelism: int = 1, io_depth: int = 1):
         """Execute the plan under a scoped tracer and return the collected
-        Chrome-trace ``Profile``. Not ported yet: it needs ``obs/export.py``
-        (ROADMAP.md §1)."""
-        raise NotImplementedError(
-            "Dataset.profile needs obs/export.py, which is not ported yet: "
-            "ROADMAP.md §1, the next read slice")
+        ``obs.export.Profile`` (spans + Chrome ``trace_event`` rendering).
+        ``path`` additionally writes the trace JSON — open it in Perfetto
+        (ui.perfetto.dev) or chrome://tracing. Results are discarded; use
+        ``BULLION_TRACE=path`` to trace a real workload instead."""
+        from ..obs.export import Profile
+        with _trace.collect() as tracer:
+            for _ in self._execute(parallelism=parallelism,
+                                   io_depth=io_depth):
+                pass
+        prof = Profile(tracer)
+        if path is not None:
+            prof.write(path)
+        return prof
 
     # -- write path (materialization sink) ---------------------------------------
     def write_to(self, out_dir: str, *, shard_rows: Optional[int] = None,
@@ -524,20 +532,69 @@ class Dataset:
                  compliance: Optional[int] = None, parallelism: int = 1,
                  io_depth: int = 1, collect_stats: bool = True,
                  use_advisor: bool = True):
-        """Materialize this plan into a fresh sharded dataset under
-        ``out_dir``. Not ported yet: it needs ``dataset/sink.py``
-        (ROADMAP.md §1)."""
-        raise NotImplementedError(
-            "Dataset.write_to needs dataset/sink.py, which is not ported "
-            "yet: ROADMAP.md §1, the next read slice")
+        """Materialize this plan into a fresh sharded dataset (current
+        format: v2 page-indexed shards) under ``out_dir`` (the read/write
+        loop's write half — see ``repro.dataset.sink``).
+
+        The surviving rows of the plan — filters, projections, ``head``
+        limits, and dequantization all compose — are re-encoded into
+        ``part-NNNNN.bln`` shards: deletion-vector rows are physically
+        purged (``verify_deleted`` reports zero raw occurrences), fresh
+        zone maps are collected, and cascade encoding selection re-runs per
+        chunk seeded by the chunk statistics. ``shard_rows`` rotates output
+        shards every N rows; ``sort_by`` re-clusters by a column name (stable
+        ascending) or any ``SortUDF`` (e.g. ``quality_sort``) so zone maps on
+        the sort column become selective; ``page_rows`` sets the output page
+        budget (default: the input's recorded budget), with each page
+        re-encoded from its own statistics; ``parallelism`` decodes input
+        groups on a thread pool with deterministic output, and
+        ``io_depth > 1`` pipelines the read side's preads against decode
+        (the write half is unaffected). The read half runs on this dataset's
+        device: ``.where`` runs the range filter and ``.dequantized()`` the
+        dequant kernel there; the write half is the host writer, whose files
+        do not depend on the device. Returns a ``WriteResult``."""
+        from .sink import write_dataset
+        return write_dataset(self, out_dir, shard_rows=shard_rows,
+                             rows_per_group=rows_per_group,
+                             page_rows=page_rows, sort_by=sort_by,
+                             compliance=compliance, parallelism=parallelism,
+                             io_depth=io_depth, collect_stats=collect_stats,
+                             use_advisor=use_advisor)
 
     def delete_where(self, predicate: Predicate, level=None):
-        """Multi-shard compliance delete of every row matching
-        ``predicate``. Not ported yet: it needs ``core/deletion.py``
-        (ROADMAP.md §1)."""
-        raise NotImplementedError(
-            "Dataset.delete_where needs core/deletion.py, which is not "
-            "ported yet: ROADMAP.md §1, the next read slice")
+        """Multi-shard compliance delete: erase every row matching
+        ``predicate`` across all shards (global row ids are translated to
+        each shard's local raw row space, then ``core.deletion.delete_rows``
+        runs per affected shard). Returns the aggregated ``DeleteStats``.
+        The victims are located by this dataset's plan, on its device: a
+        float32 range predicate runs the range filter there.
+
+        When rows were deleted the shard files were rewritten underneath
+        this dataset, so the instance is closed and marked stale — reopen
+        with ``dataset()`` to observe the deletion."""
+        import dataclasses
+
+        from ..core.deletion import Compliance, DeleteStats, delete_rows
+
+        level = Compliance.LEVEL2 if level is None else level
+        ids = self.where(predicate).drop_deleted(False).row_ids()
+        total = DeleteStats()
+        self.close()                  # close() is recoverable; reopen on use
+        if not len(ids):
+            return total
+        located: list[tuple[str, np.ndarray]] = []
+        for s in range(self._source.n_shards):
+            lo, hi = self._source.row_offset(s), self._source.row_offset(s + 1)
+            local = ids[(ids >= lo) & (ids < hi)] - lo
+            if len(local):
+                located.append((self._source.paths[s], local))
+        self._source.invalidate("delete_where rewrote shard files")
+        for path, local in located:
+            st = delete_rows(path, local, level)
+            for f in dataclasses.fields(DeleteStats):
+                setattr(total, f.name,
+                        getattr(total, f.name) + getattr(st, f.name))
+        return total
 
     def _empty_column(self, name: str):
         """Typed empty result for a column no batch produced: scalar columns

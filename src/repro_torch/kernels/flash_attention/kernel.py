@@ -6,8 +6,10 @@ synchronise; a refused launch raises here, a fault during the run shows at
 the next synchronisation.
 
 The source has three bodies. ``wgmma`` (TMA copies, wgmma products) takes
-the bf16 calls that meet TMA's rules; ``mma`` (mma.sync) every bf16 call;
-``simt`` (f32 FMA) the f32 calls. ``body="auto"`` takes the first of these
+the bf16 calls with D <= 128 that meet TMA's rules; ``mma`` (mma.sync) every
+bf16 call; ``simt`` (f32 FMA) the f32 calls. Every body takes D <= 256
+(``D_MAX``) but ``wgmma``, whose register budget has no room for a wider
+accumulator (``WGMMA_D_MAX``). ``body="auto"`` takes the first of these
 that takes the call; nothing falls back from one body to another.
 """
 
@@ -21,7 +23,8 @@ from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = {"simt": 0, "mma": 1, "wgmma": 2}   # the C entry point's codes
-D_MAX = 128
+D_MAX = 256          # csrc/flash_attention.cu DMAX
+WGMMA_D_MAX = 128    # csrc/flash_attention.cu W_DMAX
 _INT_MAX = 2**31 - 1
 
 
@@ -39,26 +42,29 @@ def takes(body: str, dtype: torch.dtype, D: int, strides, ptrs) -> bool:
     head strides (elements) of q, k, v and out; ``ptrs``: their addresses.
     ``wgmma`` needs TMA's rules: bf16, 16-byte-aligned addresses, strides
     that are positive multiples of 8 elements (16 bytes), D a multiple of 8
-    up to 128."""
+    up to ``WGMMA_D_MAX``. The others take D up to ``D_MAX``."""
     if body not in BODIES:
         raise ValueError(f"unknown body {body!r}: one of {list(BODIES)}")
+    if not 0 < D <= D_MAX:
+        return False
     if body == "simt":
         return dtype == torch.float32
-    if dtype != torch.bfloat16 or not 0 < D <= D_MAX:
+    if dtype != torch.bfloat16:
         return False
     if body == "mma":
         return True
-    return (D % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+    return (D <= WGMMA_D_MAX and D % 8 == 0 and all(p % 16 == 0 for p in ptrs)
             and all(s > 0 and s % 8 == 0 for s in strides))
 
 
 def select_body(dtype: torch.dtype, D: int, strides, ptrs) -> str:
     """The body ``"auto"`` launches: wgmma where it takes the call, else
-    mma for bf16, simt for f32."""
+    mma for bf16, simt for f32 (so mma or simt for 128 < D <= 256)."""
     for body in ("wgmma", "mma", "simt"):
         if takes(body, dtype, D, strides, ptrs):
             return body
-    raise ValueError(f"no body takes dtype {dtype} with D={D}")
+    raise ValueError(f"no body takes dtype {dtype} with D={D} (the kernel "
+                     f"takes 0 < D <= {D_MAX})")
 
 
 def flash_attention_fwd(q, k, v, out, *, causal: bool, window: int,

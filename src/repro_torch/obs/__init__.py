@@ -1,4 +1,4 @@
-"""Observability substrate: span tracing, metrics, the query log.
+"""Observability substrate: span tracing, metrics, Perfetto trace export.
 
 The shared instrumentation layer under the whole scan/I-O/decode pipeline
 (and the substrate the serve/cloud-backend roadmap items report through).
@@ -14,14 +14,17 @@ included — may depend on it without cycles):
   log-scale histograms (pread latency, coalesced-run sizes, queue depth,
   per-encoding-family page decode time). Counters absorb ``IOStats`` when
   reader accounting retires; timing histograms follow ``trace.enabled()``.
+* ``export`` — Chrome ``trace_event`` rendering (``chrome_trace`` /
+  ``write_trace``) viewable in Perfetto, plus the ``Profile`` object
+  ``Dataset.profile()`` returns.
 * ``querylog`` — thread-safe bounded ``QueryLog`` of structured per-query
   records (tenant, fingerprint, stage timings, exact ``IOStats`` delta,
   outcome), fed by the serve path and — under ``BULLION_QUERY_LOG=path``
   (JSONL sink) — by local ``Dataset`` terminals; ``BULLION_SLOW_MS``
   promotes slow queries' full span lists into their records.
-
-``export`` (Chrome trace rendering) and ``expose`` (Prometheus text) are not
-ported yet (ROADMAP.md §1, the next read slice).
+* ``expose`` — the registry snapshot rendered as Prometheus text format
+  (what the dataset server's ``metrics`` command serves; the server is not
+  ported yet).
 
 Entry points most callers want::
 
@@ -33,7 +36,9 @@ Entry points most callers want::
     print(metrics.snapshot())            # process-wide counters/histograms
 """
 
-from . import metrics, querylog, trace
+from . import expose, metrics, querylog, trace
+from .export import Profile, chrome_trace, write_trace
+from .expose import parse_prometheus_text, prometheus_text
 from .metrics import (Counter, Histogram, MetricsRegistry, REGISTRY,
                       absorb_iostats, counter, histogram, snapshot)
 from .querylog import QueryLog, QueryRecord
@@ -45,11 +50,13 @@ from .trace import (NULL_SPAN, Span, SpanRecord, StageAgg, Tracer,
 trace.init_from_env()
 
 __all__ = [
-    "trace", "metrics", "querylog",
+    "trace", "metrics", "querylog", "expose",
     "Span", "SpanRecord", "StageAgg", "Tracer", "NULL_SPAN",
     "span", "collect", "traced", "enable", "disable", "enabled", "install",
     "span_to_dict", "span_from_dict", "aggregate_spans",
     "Counter", "Histogram", "MetricsRegistry", "REGISTRY",
     "counter", "histogram", "snapshot", "absorb_iostats",
     "QueryLog", "QueryRecord",
+    "prometheus_text", "parse_prometheus_text",
+    "Profile", "chrome_trace", "write_trace",
 ]

@@ -346,18 +346,13 @@ _env_tracer: Optional[Tracer] = None
 _env_path: Optional[str] = None
 
 
-def _write_trace(path, spans, dropped=0) -> None:
-    raise NotImplementedError(
-        "Chrome trace export (obs/export.py) is not ported yet: ROADMAP.md "
-        "§1, the next read slice")
-
-
 def _write_env_trace() -> None:
     if _env_tracer is None or _env_path is None:
         return
+    from .export import write_trace
     try:
-        _write_trace(_env_path, _env_tracer.spans,
-                     dropped=_env_tracer.dropped)
+        write_trace(_env_path, _env_tracer.spans,
+                    dropped=_env_tracer.dropped)
     except Exception as e:  # never fail interpreter shutdown
         print(f"bullion: BULLION_TRACE export to {_env_path!r} failed: {e}",
               file=sys.stderr)

@@ -174,14 +174,24 @@ def test_batches_and_scanner(files):
     assert np.array_equal(got, ref.row_ids())
 
 
-def test_unported_terminals_raise(files):
+def test_unported_terminals_raise(files, tmp_path):
+    """``write_to``, ``delete_where`` and ``profile`` are ported: they run,
+    and raise only where the reference's raise (tests/test_torch_sink.py,
+    test_torch_deletion.py and test_torch_obs_export.py hold them to it)."""
+    from repro_torch.core.deletion import Compliance
     ds = dataset(files["ads"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.write_to("unused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.delete_where(scan.C("ts") < 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.profile()
+    ref = ref_dataset.dataset(files["ads"])
+    prof = ds.select(["ts"]).profile()
+    assert prof.spans and prof.dropped == 0
+    for d in (ds, ref):
+        with pytest.raises(ValueError, match="shard_rows"):
+            d.write_to(str(tmp_path / "unused"), shard_rows=0)
+        with pytest.raises(ValueError, match="LEVEL0"):
+            d.delete_where(scan.C("ts") < 3, Compliance.LEVEL0)
+    assert not (tmp_path / "unused").exists()
+    with dataset(files["ads"], device="cpu") as fresh, \
+            ref_dataset.dataset(files["ads"]) as ref_fresh:  # files untouched
+        assert fresh.count_rows() == ref_fresh.count_rows()
 
 
 def test_device_reaches_the_filter(files, monkeypatch):

@@ -34,6 +34,8 @@ def _t(*xs):
     ((1, 1, 256, 64), False, 0),
     ((2, 1, 256, 64), True, 64),
     ((1, 1, 200, 80), True, 0),       # ragged S and D
+    ((1, 2, 160, 256), True, 0),      # D = 256 (gemma3-12b's heads)
+    ((1, 1, 96, 200), False, 0),      # D = 200: padded to 256 there
 ])
 def test_mha_matches_pallas_kernel(shape, causal, window):
     B, H, S, D = shape
@@ -161,6 +163,14 @@ def _bshd_strides(B, S, H, Hkv, D):
      _ALIGNED[:3] + [_ALIGNED[3] + 8], "mma"),
     (torch.float32, 64, _bshd_strides(8, 512, 32, 8, 64), _ALIGNED, "simt"),
     (torch.float32, 100, _bshd_strides(2, 256, 8, 2, 100), _ALIGNED, "simt"),
+    # 128 < D <= 256: wgmma refuses, mma takes bf16 and simt f32
+    (torch.bfloat16, 192, _bshd_strides(2, 256, 8, 2, 192), _ALIGNED, "mma"),
+    (torch.bfloat16, 200, _bshd_strides(2, 256, 8, 2, 200), _ALIGNED, "mma"),
+    (torch.bfloat16, 256, _bshd_strides(2, 1024, 16, 8, 256), _ALIGNED, "mma"),
+    (torch.bfloat16, 256, _bshd_strides(2, 1024, 16, 1, 256), _ALIGNED, "mma"),
+    (torch.float32, 192, _bshd_strides(2, 256, 8, 2, 192), _ALIGNED, "simt"),
+    (torch.float32, 200, _bshd_strides(2, 256, 8, 2, 200), _ALIGNED, "simt"),
+    (torch.float32, 256, _bshd_strides(2, 1024, 16, 8, 256), _ALIGNED, "simt"),
 ])
 def test_auto_body_choice(dtype, D, strides, ptrs, want):
     from repro_torch.kernels.flash_attention.kernel import select_body, takes
@@ -169,6 +179,22 @@ def test_auto_body_choice(dtype, D, strides, ptrs, want):
     # mma takes every bf16 call, simt every f32 call, and nothing else
     assert takes("mma", dtype, D, strides, ptrs) == (dtype == torch.bfloat16)
     assert takes("simt", dtype, D, strides, ptrs) == (dtype == torch.float32)
+    # the wgmma body's register budget stops at D = 128
+    if D > 128:
+        assert not takes("wgmma", dtype, D, strides, ptrs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [0, 257, 512])
+def test_head_dim_past_the_limit_raises(dtype, D):
+    """No body takes D > 256 (nor D = 0), and the error names the limit."""
+    from repro_torch.kernels.flash_attention.kernel import (BODIES, D_MAX,
+                                                            select_body, takes)
+    assert D_MAX == 256
+    strides = _bshd_strides(1, 64, 2, 2, max(D, 1))
+    assert not any(takes(b, dtype, D, strides, _ALIGNED) for b in BODIES)
+    with pytest.raises(ValueError, match="D <= 256"):
+        select_body(dtype, D, strides, _ALIGNED)
 
 
 def test_model_layout_takes_wgmma():

@@ -436,6 +436,35 @@ def test_auto_takes_the_body_the_rule_gives(cuda, dtype, D, want):
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "simt")])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,kv_len,layout", [
+    (2, 16, 8, 256, 256, True, 0, None, "bshd"),     # gemma3-12b's heads
+    (1, 4, 1, 200, 256, True, 0, None, "bhsd"),      # MQA, ragged S
+    (2, 4, 2, 256, 256, True, 64, None, "bshd"),     # window
+    (2, 4, 4, 192, 256, False, 0, 130, "bshd"),      # kv_len < S
+    (1, 4, 2, 130, 200, True, 0, None, "bshd"),      # D = 200
+    (1, 4, 2, 96, 192, False, 0, None, "fused"),
+])
+def test_wide_heads_match_plain(cuda, dtype, body, B, H, Hkv, S, D, causal,
+                                window, kv_len, layout):
+    """128 < D <= 256 through the mma (bf16) and simt (f32) bodies, and
+    "auto" takes the same body."""
+    q, k, v = (x.to(dtype) for x in _bshd(np.random.default_rng(S + D), B, S,
+                                          H, Hkv, D, layout, cuda))
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), **kw).transpose(1, 2)
+    for asked in (body, "auto"):
+        before = dict(flash_attention.launches_by_body)
+        out = attention(q, k, v, body=asked, **kw)
+        torch.cuda.synchronize()
+        ran = {b: c - before[b]
+               for b, c in flash_attention.launches_by_body.items()}
+        assert ran == {b: int(b == body) for b in ran}
+        assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
 def test_a_body_that_cannot_take_the_call_raises(cuda):
     q = torch.zeros(1, 64, 2, 100, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="does not take"):
@@ -444,3 +473,9 @@ def test_a_body_that_cannot_take_the_call_raises(cuda):
         attention(q.float(), q.float(), q.float(), body="mma")
     with pytest.raises(ValueError, match="does not take"):
         attention(q, q, q, body="simt")
+    wide = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        attention(wide, wide, wide, body="wgmma")     # D > 128
+    past = torch.zeros(1, 64, 2, 257, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        attention(past, past, past)

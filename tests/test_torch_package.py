@@ -5,6 +5,7 @@ caller asks for the CPU, and kernels build without fast math."""
 
 import ast
 import importlib
+import os
 from pathlib import Path
 
 import numpy as np
@@ -258,3 +259,68 @@ def test_dequant_columns_defaults_to_cuda():
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         dequant_columns(codes, [(1.0, 0.0)])
+
+
+SLICE_MODULES = ("obs/export.py", "obs/expose.py", "core/deletion.py",
+                 "dataset/sink.py", "core/multimodal.py", "data/loader.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_import_guard_covers_the_slice_modules(rel):
+    """The compliance, sink, export and loader modules are the port's own
+    copies: the guard above reads them, and they import no reference."""
+    path = PORT / rel
+    assert path in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+
+
+@pytest.mark.parametrize("rel", ["dataset/core.py", "obs/trace.py",
+                                 "obs/export.py"])
+def test_no_stub_is_left(rel):
+    """``Dataset.profile``/``write_to``/``delete_where`` and the
+    ``BULLION_TRACE`` export are implemented: nothing raises
+    NotImplementedError there."""
+    tree = ast.parse((PORT / rel).read_text())
+    raised = [ast.dump(n.exc) for n in ast.walk(tree)
+              if isinstance(n, ast.Raise) and n.exc is not None]
+    assert not [r for r in raised if "NotImplementedError" in r]
+
+
+def test_slice_entry_points_default_to_cuda(tmp_path):
+    """``delete_where``, ``verify_deleted``, ``write_to``, ``BullionLoader``
+    and ``quality_filtered_read`` run on the card unless given "cpu"."""
+    from repro_torch.core import (Compliance, MultimodalSample, delete_where,
+                                  quality_filtered_read, verify_deleted,
+                                  write_multimodal_dataset)
+    from repro_torch.data import BullionLoader, write_lm_corpus
+    from repro_torch.dataset import dataset
+    from repro_torch.scan import C
+    path = str(tmp_path / "lm.bln")
+    write_lm_corpus(path, n_docs=8, doc_len=16, rows_per_group=4)
+    meta, media = str(tmp_path / "m.bln"), str(tmp_path / "m.media")
+    write_multimodal_dataset(meta, media, [MultimodalSample(
+        b"t", 0.5, np.zeros(2, np.float32), b"f", 1)])
+    pred = C("quality") >= 0.5
+    # the "cpu" route of each
+    assert delete_where(path, C("doc_id") == 3, Compliance.LEVEL1,
+                        device="cpu").rows_deleted == 1
+    assert verify_deleted(path, "doc_id", [3], device="cpu") == \
+        {"visible_rows": 0, "raw_occurrences": 1}
+    with dataset(path, device="cpu") as ds:
+        assert ds.where(pred).write_to(str(tmp_path / "out")).rows > 0
+    BullionLoader(path, batch_size=1, seq_len=4, predicate=pred,
+                  device="cpu").close()
+    assert quality_filtered_read(meta, ["quality"], 1.0, device="cpu")[0]
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        delete_where(path, pred)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        verify_deleted(path, "doc_id", [3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dataset(path).write_to(str(tmp_path / "out2"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BullionLoader(path, batch_size=1, seq_len=4, predicate=pred)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quality_filtered_read(meta, ["quality"], 1.0)
+    assert not os.path.exists(tmp_path / "out2")
