@@ -17,13 +17,18 @@ values at width 11, in the hand-written unpack kernel. Deletion compliance
 (``delete_where`` on copies of the 4 Mi-row ads table), the write sink
 (``Dataset.write_to`` of the ads query), the training-data loader
 (``BullionLoader`` over an LM corpus of 8 Mi tokens) and trace export, each
-through the same filter and dequant kernels. Phases, one JSON line each:
+through the same filter and dequant kernels. Training: ``make_train_step``
+on full-width, full-depth llama3.2-1b at f32 (B=8, S=512) from a Bullion
+corpus through ``BullionLoader``, every attention forward (and its
+recompute under rematerialisation) in the flash kernel under autograd.
+Phases, one JSON line each:
 
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 25 cases,
-                       each through "auto" and through every body that
+  3. kernels        -- flash attention against its plain version, 26 cases
+                       (the training shape at f32 among them), each
+                       through "auto" and through every body that
                        takes it (wgmma, mma for bf16; simt for f32); 9 of
                        them with 128 < D <= 256, where "auto" takes mma
                        (bf16) or simt (f32)
@@ -95,6 +100,23 @@ through the same filter and dequant kernels. Phases, one JSON line each:
                        quality_filtered_read against its cpu route
  18. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
                        in a fresh interpreter, Prometheus text round trip
+ 19. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
+                       train_tokens_per_s beside the bound, peak memory,
+                       flash launches (2 x 16 a step, all simt), finite
+                       losses; one step traced by kernel (GEMMs, flash
+                       forward, the plain attention backward, AdamW); at
+                       full width and one layer, loss and gradients through
+                       the kernel against attention_ref under autograd
+                       (3e-5), and the loss of one repeated batch falling
+                       (at full depth the random init's gradient norm is
+                       near 1e11 and the loss does not move past its noise:
+                       printed, with the norm at 1, 2, 4, 8 layers); 2 steps
+                       at bf16 compute (all wgmma); the launcher at --smoke
+                       to step 6, then resumed to 8; a restored step equal
+                       to the uninterrupted one
+ 20. train_times    -- flash attention at the training shape (f32, simt)
+                       against its bound, its plain version and SDPA, warm
+                       and cold; the plain backward's device time
 
 then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Any failed check raises, and the script exits non-zero without the
@@ -115,6 +137,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from io import StringIO
 from pathlib import Path
 
 import numpy as np
@@ -239,6 +262,8 @@ def _inputs(rng, B, H, Hkv, S, D, dtype, layout):
 SERVE_CASE = dict(B=SERVE_B, H=32, Hkv=8, S=SERVE_P, D=64,
                   dtype=torch.bfloat16, causal=True, window=0, kv_len=None,
                   layout="bshd")
+# the training step's attention: llama3.2-1b at B=8, S=512, f32 (simt)
+TRAIN_CASE = dict(SERVE_CASE, dtype=torch.float32)
 # a gemma3-12b prefill (head_dim 256, 16 query and 8 kv heads) of 2 x 1024
 WIDE_CASE = dict(B=2, H=16, Hkv=8, S=1024, D=256, dtype=torch.bfloat16,
                  causal=True, window=0, kv_len=None, layout="bshd")
@@ -247,7 +272,7 @@ WIDE_CASE = dict(B=2, H=16, Hkv=8, S=1024, D=256, dtype=torch.bfloat16,
 def kernel_cases() -> list[dict]:
     base = dict(B=1, H=2, Hkv=2, causal=True, window=0, kv_len=None,
                 layout="bhsd")
-    cases = [dict(SERVE_CASE)]
+    cases = [dict(SERVE_CASE), dict(TRAIN_CASE)]
     for dtype in (torch.float32, torch.bfloat16):
         cases += [
             dict(base, S=384, D=128, dtype=dtype),
@@ -293,13 +318,14 @@ def _bodies(q, k, v) -> tuple[str, list]:
             [b for b in BODIES if takes(b, q.dtype, D, strides, ptrs)])
 
 
-def phase_kernels(seed: int) -> tuple[float, float]:
+def phase_kernels(seed: int) -> tuple[float, float, float]:
     """The kernel vs attention_ref on the card, each case through "auto"
     and through every body that takes it; returns the wgmma body's error
-    at the serving shape and the mma body's at WIDE_CASE."""
+    at the serving shape, the mma body's at WIDE_CASE and the simt body's
+    at TRAIN_CASE."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
-    serve_err = wide_err = None
+    serve_err = wide_err = train_err = None
     for i, c in enumerate(kernel_cases()):
         rng = np.random.default_rng(seed + i)
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
@@ -345,7 +371,9 @@ def phase_kernels(seed: int) -> tuple[float, float]:
                 serve_err = err
             if c == dict(WIDE_CASE) and body == "mma":
                 wide_err = err
-    return serve_err, wide_err
+            if c == TRAIN_CASE and body == "simt":
+                train_err = err
+    return serve_err, wide_err, train_err
 
 
 def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
@@ -515,12 +543,14 @@ def phase_logits(seed: int, gen) -> None:
             check(err < bound, f"decode step {i}: {err} >= {bound}")
 
 
-def _kernel_table(prof, top: int = 8) -> tuple[float, list]:
-    """Device kernels only (host-side operator rows would count them twice)."""
+def _kernel_table(prof, top: int = 8, ranges=()) -> tuple[float, list]:
+    """Device kernels only (host-side operator rows would count them twice,
+    and so would the device rows of the record_function ``ranges``)."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in ranges]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     return total, [{"name": n[:80], "device_ms": us / 1e3, "calls": c}
@@ -1534,6 +1564,368 @@ def phase_export(tmp: str) -> None:
          prometheus_samples=len(parsed))
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=8, seq=512, steps=8, repeat_steps=4, bf16_steps=2,
+             norm_depths=(1, 2, 4, 8))
+TRAIN_CORPUS = dict(n_docs=64, doc_len=2048)     # the launcher's sizing
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=100)   # launcher's
+TRAIN_DEVICE = "cuda"
+TRAIN_RANGES = ("attention_backward", "adamw_update")   # _train_ranges
+TRAIN_LAUNCHER = ["--smoke", "--batch", "2", "--seq", "32", "--log-every",
+                  "3", "--ckpt-every", "3"]
+
+
+def _train_cfg(**kw):
+    """llama3.2-1b at full width and depth, f32 (the launcher's compute)."""
+    import repro_torch.configs as configs
+    return configs.get("llama3.2-1b").scaled(compute_dtype="float32", **kw)
+
+
+def _train_flops(model, cfg, B: int, S: int) -> int:
+    """Products of one rematerialised step: every weight's matmul forward,
+    twice in the backward and once more in the recompute (the tied head
+    is not recomputed), and the causal attention's live pairs: forward,
+    recompute and a backward of twice the forward."""
+    head = cfg.vocab * cfg.d_model
+    layers = model.n_params - head
+    tokens = B * S
+    live = B * cfg.n_heads * S * (S + 1) // 2
+    attn = cfg.n_layers * 4 * (4 * cfg.head_dim * live)
+    return 2 * tokens * (3 * (layers + head) + layers) + attn
+
+
+def _sync() -> None:
+    if TRAIN_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def _train_ranges():
+    """Name the plain attention backward and the optimizer update in the
+    profiler (record_function ranges around the port's own functions)."""
+    from torch.profiler import record_function
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.train import loop
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    saved = ops.attention_bwd_ref, loop.adamw_update
+    ops.attention_bwd_ref = ranged("attention_backward", saved[0])
+    loop.adamw_update = ranged("adamw_update", saved[1])
+    try:
+        yield
+    finally:
+        ops.attention_bwd_ref, loop.adamw_update = saved
+
+
+def _train_profile(step, opt, batch) -> dict:
+    """Device time of one step by kernel and by the port's ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    _sync()
+    with _train_ranges(), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(opt, {"tokens": batch})
+        _sync()
+        wall = time.perf_counter() - t0
+    dev, table = _kernel_table(prof, top=12, ranges=TRAIN_RANGES)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and e.key not in TRAIN_RANGES]
+    gemm = sum(e.self_device_time_total for e in kernels
+               if "gemm" in e.key.lower())
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_fwd" in e.key)
+    ranges = {}     # the host range's or the card's annotation, the larger
+    for e in prof.key_averages():
+        if e.key in TRAIN_RANGES:
+            ranges[e.key] = max(ranges.get(e.key, 0), e.device_time_total)
+    return dict(wall_ms=wall * 1e3, device_ms=dev / 1e3,
+                busy_share=dev / 1e3 / (wall * 1e3) if wall else None,
+                gemm_ms=gemm / 1e3, flash_fwd_ms=flash / 1e3,
+                attention_backward_ms=ranges.get("attention_backward", 0) / 1e3,
+                adamw_update_ms=ranges.get("adamw_update", 0) / 1e3,
+                top=table)
+
+
+def _grads(model, batch) -> tuple[float, dict]:
+    model.requires_grad_(True)
+    loss = model.loss({"tokens": batch})
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def _plain_autograd(q, k, v, *, causal=True, window=0, kv_len=None,
+                    body="auto"):
+    """attention_ref under autograd on the model's layout."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        kv_len=kv_len)
+    return out.transpose(1, 2)
+
+
+def phase_train(seed: int, tmp: str) -> dict:
+    """``make_train_step`` on full-width, full-depth llama3.2-1b at f32 from
+    a Bullion corpus through ``BullionLoader``: TRAIN["steps"] steps, their
+    times, launches (2 x 16 a step, all simt) and memory; one step traced
+    by kernel; at full width and one layer, the kernel route's loss and
+    gradients against attention_ref under autograd, and the loss of one
+    repeated batch falling; the gradient norm against depth; steps at bf16
+    compute (all wgmma); the launcher at --smoke with a checkpoint and a
+    resume; and a restored step equal to the uninterrupted one."""
+    from repro_torch.data import BullionLoader, write_lm_corpus
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.zoo import build
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    dev = TRAIN_DEVICE
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    cfg = _train_cfg()
+    corpus = os.path.join(tmp, "train_corpus.bln")
+    write_lm_corpus(corpus, vocab=cfg.vocab, seed=seed, **TRAIN_CORPUS)
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, seed=seed)
+    opt = adamw_init(model)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), device=dev)
+    _sync()
+    init_s = time.perf_counter() - t0
+    loader = BullionLoader(corpus, batch_size=B, seq_len=S, device=dev)
+    it = iter(loader)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, step_ms, wait_ms, norms, first = [], [], [], [], None
+    for i in range(TRAIN["steps"]):                      # the main path
+        t0 = time.perf_counter()
+        batch, _ = next(it)
+        t1 = time.perf_counter()
+        first = batch if first is None else first
+        metrics = step(opt, {"tokens": batch})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        _sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        wait_ms.append((t1 - t0) * 1e3)
+        emit("train", step=i + 1, loss=losses[-1], step_ms=step_ms[-1],
+             loader_wait_ms=wait_ms[-1],
+             grad_norm=norms[-1], lr=float(metrics["lr"]))
+    launched = counts()
+    by_body = dict(flash_attention.launches_by_body)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    want = 2 * cfg.n_layers * TRAIN["steps"]
+    check(launched == dict(flash_attention=want, range_mask=0, dequant=0,
+                           dequant_packed=0, bitunpack=0),
+          f"training launched {launched}, expected flash_attention {want} "
+          "times (2 a layer a step) and no other kernel")
+    check(by_body == dict(simt=want, mma=0, wgmma=0),
+          f"f32 training launched the bodies {by_body}, expected simt only")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    prof = _train_profile(step, opt, next(it)[0])
+    # Not a check: at full depth the random init's gradient norm is near
+    # 1e11 (grad_norm_by_depth below), and no step size the schedule takes
+    # moves the loss by more than its noise; the falling loss is held at
+    # one layer, below.
+    repeated = [float(step(opt, {"tokens": first})["loss"])
+                for _ in range(TRAIN["repeat_steps"])]
+    check(all(math.isfinite(x) for x in repeated), f"losses {repeated}")
+    loader.close()
+    median = float(np.median(step_ms[1:]))
+    flops = _train_flops(model, cfg, B, S)
+    bound_ms = flops / F32_FLOP_PER_S * 1e3
+    row = dict(arch=cfg.name, n_params=model.n_params,
+               n_layers=cfg.n_layers, batch=B, seq=S, dtype="float32",
+               tf32=torch.backends.cuda.matmul.allow_tf32, init_s=init_s,
+               steps=len(losses), losses=losses, grad_norms=norms,
+               repeated_batch_losses=repeated,
+               step_ms=step_ms, loader_wait_ms=wait_ms,
+               train_step_ms=median, train_tokens_per_s=B * S / median * 1e3,
+               step_flops=flops, bound_ms=bound_ms,
+               bound_tokens_per_s=B * S / bound_ms * 1e3,
+               bound_share=bound_ms / median,
+               max_memory_allocated_gb=peak / 1e9,
+               flash_launches=launched["flash_attention"],
+               flash_launches_by_body=by_body)
+    emit("train", **row)
+    emit("train", profile="one_step", **prof)
+    del model, opt, step
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # route against route at full width, one layer
+    one = _train_cfg(segments=((("full:swiglu",), 1),))
+    m1 = build(one, device=dev, seed=seed)
+    loss_k, g_k = _grads(m1, first)
+    with model_attention(_plain_autograd):
+        loss_p, g_p = _grads(m1, first)
+    tol = TOL[torch.float32]
+    errs = {k: (g_k[k] - g_p[k]).abs().max().item() for k in g_k}
+    scale = {k: g_p[k].abs().max().item() for k in g_p}
+    emit("train", check="kernel_vs_plain_one_layer", n_layers=1,
+         loss_kernel=loss_k, loss_plain=loss_p, loss_err=abs(loss_k - loss_p),
+         max_grad_err=max(errs.values()), grad_errs=errs, grad_max=scale,
+         tol=tol)
+    check(abs(loss_k - loss_p) < tol, f"one-layer loss {loss_k} vs {loss_p}")
+    bad = {k: e for k, e in errs.items() if not e < tol * max(1.0, scale[k])}
+    check(not bad, f"one-layer gradients beyond {tol}: {bad}")
+    del g_k, g_p
+    # the loss of one repeated batch falls (one layer, full width)
+    step1 = make_train_step(m1, AdamWConfig(**TRAIN_OPT), device=dev)
+    opt1 = adamw_init(m1)
+    falls = [float(step1(opt1, {"tokens": first})["loss"])
+             for _ in range(TRAIN["repeat_steps"])]
+    emit("train", check="repeated_batch_loss_falls", n_layers=1,
+         losses=falls, full_depth_losses=repeated)
+    check(all(math.isfinite(x) for x in falls) and falls[-1] < falls[0],
+          f"one layer: the loss of one repeated batch did not fall: {falls}")
+    del m1, opt1, step1
+    # the gradient norm of the random init against depth, at full width
+    depth_norms = {}
+    for layers in TRAIN["norm_depths"]:
+        m = build(_train_cfg(segments=((("full:swiglu",), layers),)),
+                  device=dev, seed=seed)
+        _, g = _grads(m, first)
+        depth_norms[layers] = math.sqrt(sum(float(x.double().square().sum())
+                                            for x in g.values()))
+        del m, g
+    depth_norms[cfg.n_layers] = norms[0]
+    emit("train", diagnostic="grad_norm_by_depth", batch="the first",
+         grad_norm=depth_norms)
+
+    # bf16 compute (f32 master weights): the wgmma body
+    bcfg = _train_cfg().scaled(compute_dtype="bfloat16")
+    model = build(bcfg, device=dev, seed=seed)
+    opt = adamw_init(model)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), device=dev)
+    loader = BullionLoader(corpus, batch_size=B, seq_len=S, device=dev)
+    it = iter(loader)
+    zero_counts()
+    bf16 = []
+    for _ in range(TRAIN["bf16_steps"]):
+        t0 = time.perf_counter()
+        bf16.append(float(step(opt, {"tokens": next(it)[0]})["loss"]))
+        _sync()
+        emit("train", dtype="bfloat16", loss=bf16[-1],
+             step_ms=(time.perf_counter() - t0) * 1e3)
+    loader.close()
+    bwant = 2 * bcfg.n_layers * TRAIN["bf16_steps"]
+    by_body_bf16 = dict(flash_attention.launches_by_body)
+    check(by_body_bf16 == dict(simt=0, mma=0, wgmma=bwant),
+          f"bf16 training launched the bodies {by_body_bf16}, expected "
+          f"wgmma {bwant} times")
+    check(all(math.isfinite(x) for x in bf16), f"bf16 losses {bf16}")
+    del model, opt, step
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    os.unlink(corpus)
+    emit("train", dtype="bfloat16", losses=bf16, launches_by_body=by_body_bf16)
+
+    launcher = _train_launcher(seed, tmp)
+    return dict(row, launches=launched["flash_attention"],
+                bf16_launches=bwant, launcher=launcher)
+
+
+def _train_launcher(seed: int, tmp: str) -> dict:
+    """``python -m repro_torch.launch.train --smoke`` (``main``) to step 6
+    with checkpoints every 3, then again to step 8: it resumes at 6. And a
+    checkpoint of 3 steps restored into a fresh model and optimizer takes a
+    step equal, bit for bit, to the uninterrupted model's."""
+    import repro_torch.configs as configs
+    from repro_torch.launch.train import main
+    from repro_torch.models.zoo import build
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    dev = TRAIN_DEVICE
+    args = TRAIN_LAUNCHER + ["--data", os.path.join(tmp, "launch_data"),
+                             "--ckpt", os.path.join(tmp, "launch_ckpt"),
+                             "--device", dev]
+    out = StringIO()
+    with contextlib.redirect_stdout(out):
+        first = main(args + ["--steps", "6"])
+        resumed = main(args + ["--steps", "8"])
+    kept = sorted(os.listdir(os.path.join(tmp, "launch_ckpt")))
+    check(len(first) == 6 and len(resumed) == 2 and
+          all(math.isfinite(x) for x in first + resumed),
+          f"launcher losses {first} then {resumed}")
+    check("resumed from step 6" in out.getvalue(),
+          "the second launcher run did not resume from step 6")
+    check(kept == ["step_000000006", "step_000000008"],
+          f"launcher checkpoints {kept}")
+
+    cfg = configs.get_smoke("llama3.2-1b").scaled(compute_dtype="float32")
+    rng = np.random.default_rng(seed)
+    batches = [rng.integers(0, cfg.vocab, (2, 33)).astype(np.int32)
+               for _ in range(4)]
+    model = build(cfg, device=dev, seed=seed)
+    opt = adamw_init(model)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), device=dev)
+    for b in batches[:3]:
+        step(opt, {"tokens": b})
+    mgr = CheckpointManager(os.path.join(tmp, "resume_ckpt"), keep=1)
+    mgr.save(3, (model, opt))
+    mgr.wait()
+    model2 = build(cfg, device=dev, seed=seed + 1)
+    opt2 = adamw_init(model2)
+    mgr.restore((model2, opt2), device=dev)
+    step2 = make_train_step(model2, AdamWConfig(**TRAIN_OPT), device=dev)
+    a = float(step(opt, {"tokens": batches[3]})["loss"])
+    b = float(step2(opt2, {"tokens": batches[3]})["loss"])
+    same = a == b and all(torch.equal(x, y) for x, y in zip(
+        model.parameters(), model2.parameters())) and all(
+        torch.equal(opt[k][n], opt2[k][n]) for k in ("m", "v")
+        for n in opt[k]) and int(opt["step"]) == int(opt2["step"])
+    check(same, f"the resumed step differs from the uninterrupted one: "
+          f"loss {b} vs {a}")
+    res = dict(first_losses=first, resumed_losses=resumed, checkpoints=kept,
+               resume_step_equal=same, resume_loss=b)
+    emit("train", case="launcher_smoke", **res)
+    return res
+
+
+def phase_train_times(seed: int) -> tuple[dict, float]:
+    """The flash kernel at the training shape (f32, simt) against its
+    bound, its plain version and SDPA at f32, warm and cold; and the plain
+    backward's device time at that shape beside it."""
+    from repro_torch.kernels.flash_attention import (attention,
+                                                     attention_bwd_ref,
+                                                     attention_ref)
+    c = TRAIN_CASE
+    B, H, Hkv, S, D = c["B"], c["H"], c["Hkv"], c["S"], c["D"]
+    q, k, v = _inputs(np.random.default_rng(seed), B, H, Hkv, S, D,
+                      c["dtype"], "bshd")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size())
+    row, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=True, body="simt"),
+        lambda: attention_ref(qt, kt, vt, causal=True),
+        bytes_moved=bytes_moved, ops=flops, op_rate=F32_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    out = attention(q, k, v, causal=True).transpose(1, 2)
+    dout = torch.randn_like(out)
+    backward_ms = _device_ms_per_call(
+        lambda: attention_bwd_ref(qt, kt, vt, out, dout, causal=True),
+        calls=10)
+    emit("train_times", shape=[B, H, Hkv, S, D], dtype="float32",
+         causal=True, body="simt", **extra, live_scores=live_pairs,
+         plain_backward_ms=backward_ms,
+         simt_over_library=row["ms"] / row["library_ms"], **row)
+    return dict(row, cold_l2_ms=extra["cold_l2_ms"],
+                library_cold_l2_ms=extra["library_cold_l2_ms"]), backward_ms
+
+
 # Key of a time taken by CUDA events (``_event_us``) where the profiler
 # recorded no kernel of the function; EVENT_TIMED counts such times, and
 # each timing phase prints how many of its own there were.
@@ -1793,7 +2185,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t0 = time.perf_counter()
     phase_build()
-    serve_err, wide_err = phase_kernels(args.seed)
+    serve_err, wide_err, train_err = phase_kernels(args.seed)
     filter_err = phase_filter_kernels(args.seed)
     dequant_err = phase_dequant_kernels(args.seed)
     bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
@@ -1823,6 +2215,7 @@ def main(argv=None) -> int:
         sink_launches = timed("sink", phase_sink, tmp, victims)
         loader_launches = timed("loader", phase_loader, args.seed, tmp)
         timed("export", phase_export, tmp)
+        train = timed("train", phase_train, args.seed, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {"scan_ads": {"range_mask": scan_launches,
@@ -1830,14 +2223,21 @@ def main(argv=None) -> int:
                 **{f"compliance_{case}": launched for case, launched
                    in compliance_launches.items()},
                 "sink": sink_launches, "loader": loader_launches}
+    train_row, train_bwd_ms = phase_train_times(args.seed)
     print(json.dumps({"kernels": [
         dict(name="flash_attention", route="cuda", body="wgmma",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:91",
              launches=launches, max_abs_err=serve_err, **row,
+             launches_by_phase={"serve": launches, "train": train["launches"]},
              d256=dict(body="mma", shape=[WIDE_CASE[k] for k in "B H Hkv S D"
                                           .split()],
-                       max_abs_err=wide_err, **wide)),
+                       max_abs_err=wide_err, **wide),
+             train=dict(body="simt", dtype="float32",
+                        shape=[TRAIN_CASE[k] for k in "B H Hkv S D".split()],
+                        launches_per_step=2 * train["n_layers"],
+                        max_abs_err=train_err,
+                        plain_backward_ms=train_bwd_ms, **train_row)),
         dict(name="range_mask", route="cuda",
              source="src/repro_torch/csrc/filter.cu",
              replaces="src/repro/kernels/filter/kernel.py:31",

@@ -80,8 +80,10 @@ def param_count(decl) -> int:
 class ParamTree(nn.Module):
     """A dict/list tree of tensors as a module. Dict keys become attributes
     (``tree["attn"]["wq"]`` reads the same as on the plain dict), lists
-    become ``nn.ModuleList``s. Parameters do not require grad: the serving
-    slice has no backward pass."""
+    become ``nn.ModuleList``s. Parameters are registered with
+    ``requires_grad=False``, so serving builds no graph; training makes
+    them trainable with ``requires_grad_(True)``, which
+    ``train.make_train_step`` calls."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -98,3 +100,12 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+    def as_tree(self, fn=lambda p: p):
+        """The plain dict/list tree of ``fn(parameter)``, in the layout
+        this module was built from (and reads the same)."""
+        tree = {k: fn(p) for k, p in self._parameters.items()}
+        for k, m in self._modules.items():
+            tree[k] = ([x.as_tree(fn) for x in m]
+                       if isinstance(m, nn.ModuleList) else m.as_tree(fn))
+        return tree

@@ -6,6 +6,8 @@ port's ``Model``. The reference stacks each block over a leading ``layers``
 axis (``segments[si]["b{j}"]``); here each layer is its own module, so
 ``segments.si.bj.<leaf>[i]`` becomes ``segments.si.bj.i.<leaf>``. Layouts
 are kept as they are (``wq [d, H, D]``, ``wo [H, D, d]``, ``embed [V, d]``).
+``stack_leaves`` is the inverse: the port's per-layer tensors restacked into
+the reference's tree, as checkpoints and the optimizer's state store them.
 """
 
 from __future__ import annotations
@@ -57,3 +59,44 @@ def load_jax_params(model: torch.nn.Module, tree) -> None:
         for name, p in params.items():
             p.copy_(torch.tensor(np.asarray(src[name], np.float32),
                                  dtype=p.dtype))
+
+
+def reference_key(name: str) -> tuple[list[str], int | None]:
+    """A port parameter name as (the reference's key path, layer index):
+    ``segments.0.b0.3.attn.wq`` -> (["segments", "0", "b0", "attn", "wq"],
+    3); ``final_norm.scale`` -> (["final_norm", "scale"], None)."""
+    parts = name.split(".")
+    if parts[0] == "segments":
+        return parts[:3] + parts[4:], int(parts[3])
+    return parts, None
+
+
+def stack_leaves(named) -> dict:
+    """``{port parameter name: tensor or array}`` -> the reference's tree
+    of numpy arrays, ``segments[si]["b{j}"][<leaf>]`` stacked over layers
+    (the inverse of ``jax_leaves``). Raises on a missing layer."""
+    layers: dict[tuple, dict[int, np.ndarray]] = {}
+    tree: dict = {}
+    for name, x in named.items():
+        arr = (x.detach().to("cpu", copy=True).numpy()
+               if isinstance(x, torch.Tensor) else np.array(x))
+        path, layer = reference_key(name)
+        if layer is None:
+            _put(tree, path, arr)
+        else:
+            layers.setdefault(tuple(path), {})[layer] = arr
+    for path, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(by_layer)}")
+        _put(tree, list(path), np.stack([by_layer[i]
+                                         for i in range(len(by_layer))]))
+    if "segments" in tree:
+        segs = tree["segments"]
+        tree["segments"] = [segs[str(i)] for i in range(len(segs))]
+    return tree
+
+
+def _put(tree: dict, path: list[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value

@@ -6,10 +6,13 @@ layers are a ``ModuleList`` walked by a Python loop. Caches keep the
 reference's stacked layout, ``[layers, B, S, Hkv, D]``, and are updated in
 place (a decode step writes one slot instead of copying the cache).
 
-Ported: ``full``/``global`` attention with ``swiglu`` MLPs, in ``prefill``
-and ``decode`` modes. Prefill attention runs the flash-attention kernel;
-decode attention (one query over the cache, with ``kv_valid``) stays plain
-PyTorch, as the reference leaves it to XLA outside any kernel.
+Ported: ``full``/``global`` attention with ``swiglu`` MLPs, in ``prefill``,
+``decode`` and ``train`` modes. Prefill and training attention run the
+flash-attention kernel (training through its autograd Function, with a
+plain backward); decode attention (one query over the cache, with
+``kv_valid``) stays plain PyTorch, as the reference leaves it to XLA
+outside any kernel. Training rematerialises each layer, as the reference's
+``jax.checkpoint`` of its scan body does.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention
 from .base import P
@@ -103,7 +107,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 @dataclasses.dataclass
 class Ctx:
     cfg: ModelConfig
-    mode: str = "prefill"                       # prefill | decode
+    mode: str = "prefill"                       # prefill | decode | train
     positions: Optional[torch.Tensor] = None    # [T]; decode: [cache_pos]
     cache_pos: int = 0                          # decode: slot of the new token
 
@@ -162,13 +166,21 @@ def logits_fn(params, x, cfg: ModelConfig):
 
 def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
     """x: [B, T, d] embedded inputs -> final-normed hidden [B, T, d].
-    ``cache`` is updated in place."""
-    if ctx.mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {ctx.mode!r}: training comes with the training slice of "
-            "ROADMAP.md")
+    ``cache`` is updated in place (prefill, decode; training takes none).
+
+    In ``train`` mode each layer runs under a non-reentrant ``checkpoint``:
+    its activations are dropped after the forward and recomputed in the
+    backward (so its attention kernel launches twice a step). The
+    reference's ``remat_policy="dots"`` saves the products' outputs
+    instead of recomputing them; here it checkpoints the whole layer too,
+    which gives the same numbers and spends the recompute instead of the
+    memory."""
+    if ctx.mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"unknown mode {ctx.mode!r}")
     if ctx.mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
+    if ctx.mode == "train" and cache is not None:
+        raise ValueError("training takes no cache")
     for si, (blocks, rep) in enumerate(cfg.segments):
         seg_params = params["segments"][si]
         seg_cache = cache["segments"][si] if cache is not None else None
@@ -177,5 +189,10 @@ def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
                 c = None
                 if seg_cache is not None:
                     c = {n: seg_cache[f"b{j}"][n][i] for n in ("k", "v")}
-                x = apply_block(seg_params[f"b{j}"][i], x, ctx, c)
+                p = seg_params[f"b{j}"][i]
+                if ctx.mode == "train":
+                    x = checkpoint(apply_block, p, x, ctx, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = apply_block(p, x, ctx, c)
     return rmsnorm(params["final_norm"], x)

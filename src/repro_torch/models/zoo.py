@@ -1,5 +1,6 @@
 """Model zoo entry point, ported from ``repro.models.zoo``:
-``build(cfg) -> Model`` with ``init_cache``, ``prefill`` and ``decode_step``.
+``build(cfg) -> Model`` with ``loss`` (training), ``init_cache``,
+``prefill`` and ``decode_step`` (serving).
 
 ``Model`` is an ``nn.Module`` that holds its parameters; their names are the
 reference's key paths with a layer index after the block, e.g.
@@ -8,12 +9,27 @@ reference's key paths with a layer index after the block, e.g.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from . import transformer as tf
 from .base import ParamTree, init_tree, param_count
 from .config import ModelConfig
+
+
+def as_device_tensor(x, device) -> torch.Tensor:
+    """A tensor or array (numpy, or anything ``np.asarray`` takes) on
+    ``device``; arrays are copied."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x))
+    return x.to(device)
+
+
+def _xent(logits, labels):
+    """Mean next-token cross-entropy: f32 log-softmax, the label's entry."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None])[..., 0].mean()
 
 
 class Model(ParamTree):
@@ -39,6 +55,35 @@ class Model(ParamTree):
 
     def _dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
+
+    # -- training ---------------------------------------------------------------
+    def loss(self, batch: dict):
+        """batch: {"tokens": [B, S+1]} (a tensor or array of token ids) ->
+        the mean next-token loss, a 0-d f32 tensor with a graph back to
+        the parameters that require grad. Each layer is recomputed in the
+        backward (``transformer.forward``)."""
+        if "frames" in batch:
+            raise NotImplementedError(
+                "encoder-decoder inputs (frames) are not ported yet: the "
+                "'other block families' slice of ROADMAP.md")
+        cfg = self.cfg
+        dt = self._dtype()
+        params = self
+        if cfg.cast_params_once and dt != torch.float32:
+            # one cast of the f32 master weights before the layers (the
+            # reference's, for its all-gathers); grads flow back through it
+            params = self.as_tree(
+                lambda p: p.to(dt) if p.dtype == torch.float32 else p)
+        tokens = as_device_tensor(batch["tokens"], self.device).long()
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        T = inputs.shape[1]
+        ctx = tf.Ctx(cfg=cfg, mode="train",
+                     positions=torch.arange(T, device=tokens.device))
+        x = tf.embed_tokens(params, inputs, cfg, dt)
+        x = tf.forward(params, x, cfg, ctx)
+        aux = 0.0        # no MoE block is ported: nothing adds an aux loss
+        return (_xent(tf.logits_fn(params, x, cfg), labels)
+                + cfg.aux_loss_weight * aux)
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16) -> dict:

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the flash-attention kernel (each
-body), range-filter, dequant (both bodies) and BP32-unpack kernels against
-their plain versions, the choice of the flash-attention body, the smoke
-model on CUDA against the CPU, and predicate and quantized reads on CUDA
-against the CPU. They skip where CUDA is absent. On an H100:
+body, and its autograd Function against autograd through the plain
+version; one training step of the smoke model), range-filter, dequant
+(both bodies) and BP32-unpack kernels against their plain versions, the
+choice of the flash-attention body, the smoke model on CUDA against the
+CPU, and predicate and quantized reads on CUDA against the CPU. They skip where CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -91,6 +92,64 @@ def test_smoke_model_on_cuda_matches_cpu(cuda):
     assert flash_attention.launches == before + cfg.n_layers
     scale = ref.abs().max().item()
     assert (out.cpu() - ref).abs().max().item() < 1e-4 * scale + 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (2, 8, 2, 200, 64),      # GQA 4:1, S not a multiple of the tile
+    (1, 4, 4, 256, 64),      # 1:1
+    (2, 8, 2, 130, 128),     # GQA 4:1, D = 128, ragged S
+    (1, 4, 4, 300, 128),     # 1:1, D = 128, ragged S
+])
+def test_attention_function_grads_match_plain(cuda, dtype, B, H, Hkv, S, D):
+    """The autograd Function (the kernel's forward, the plain backward)
+    against autograd through attention_ref, on the model's layout, within
+    TOL x max(1, the largest gradient); one launch, by the body "auto"
+    takes (simt for f32, wgmma for bf16)."""
+    rng = np.random.default_rng(3)
+    shapes = [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)]
+    inputs = [torch.tensor(rng.normal(size=sh), dtype=dtype, device=cuda)
+              for sh in shapes]
+    dout = torch.tensor(rng.normal(size=shapes[0]), dtype=dtype, device=cuda)
+    got = [x.clone().requires_grad_(True) for x in inputs]
+    ref = [x.clone().requires_grad_(True) for x in inputs]
+    before = dict(flash_attention.launches_by_body)
+    out = attention(*got, causal=True)
+    ran = {b: n - before[b] for b, n in
+           flash_attention.launches_by_body.items() if n != before[b]}
+    assert ran == {"simt" if dtype == torch.float32 else "wgmma": 1}
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"
+    out.backward(dout)
+    attention_ref(*(x.transpose(1, 2) for x in ref),
+                  causal=True).transpose(1, 2).backward(dout)
+    # gradients exceed the outputs' magnitude: the tolerance scales with
+    # the largest (bf16 rounds a gradient of 2-4 in steps of 1/64)
+    for a, b in zip(got, ref):
+        scale = max(1.0, b.grad.float().abs().max().item())
+        err = (a.grad.float() - b.grad.float()).abs().max().item()
+        assert err < TOL[dtype] * scale, (err, scale)
+
+
+def test_smoke_train_step_on_cuda_matches_cpu(cuda):
+    """One f32 step of the smoke model on the card from the CPU model's
+    state: 2 launches a layer (the forward and its recompute), all simt,
+    and the loss the CPU's."""
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    cfg = configs.get_smoke("llama3.2-1b").scaled(compute_dtype="float32")
+    cpu_model = build(cfg, device="cpu")
+    gpu_model = build(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    batch = {"tokens": np.random.default_rng(4).integers(
+        0, cfg.vocab, (4, 65)).astype(np.int32)}
+    losses = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda)):
+        before = dict(flash_attention.launches_by_body)
+        step = make_train_step(model, AdamWConfig(), device=dev)
+        losses.append(float(step(adamw_init(model), batch)["loss"]))
+    ran = {b: n - before[b] for b, n in
+           flash_attention.launches_by_body.items() if n != before[b]}
+    assert ran == {"simt": 2 * cfg.n_layers}
+    assert abs(losses[1] - losses[0]) < 1e-5 * abs(losses[0])
 
 
 def _filter_inputs(seed, C_, N):

@@ -292,7 +292,12 @@ def test_cache_overflow_and_training_mode_raise():
         _, cache = tm.prefill({"tokens": tok}, tm.init_cache(1, 4))
         with pytest.raises(ValueError, match="full"):
             tm.decode_step(cache, tok[:, :1])
-        with pytest.raises(NotImplementedError, match="training"):
+        # training runs (tests/test_torch_train.py), but takes no cache
+        with pytest.raises(ValueError, match="no cache"):
             ttf.forward(tm, torch.zeros(1, 2, tm.cfg.d_model), tm.cfg,
                         ttf.Ctx(cfg=tm.cfg, mode="train",
+                                positions=torch.arange(2)), cache=cache)
+        with pytest.raises(ValueError, match="unknown mode"):
+            ttf.forward(tm, torch.zeros(1, 2, tm.cfg.d_model), tm.cfg,
+                        ttf.Ctx(cfg=tm.cfg, mode="score",
                                 positions=torch.arange(2)))

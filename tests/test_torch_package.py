@@ -324,3 +324,29 @@ def test_slice_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         quality_filtered_read(meta, ["quality"], 1.0)
     assert not os.path.exists(tmp_path / "out2")
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """``make_train_step``, ``CheckpointManager.restore``'s target and the
+    launcher run on the card unless given "cpu"."""
+    from repro_torch.launch.train import main
+    from repro_torch.models.zoo import build
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.checkpoint import CheckpointManager
+    model = build(_smoke_cfg(), device="cpu")
+    opt = adamw_init(model)
+    make_train_step(model, AdamWConfig(), device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "ck"), async_save=False)
+    mgr.save(1, (model, opt))
+    mgr.restore((model, opt), device="cpu")
+    with pytest.raises(ValueError, match="lies on"):
+        make_train_step(model, AdamWConfig(), device="meta")
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model, AdamWConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mgr.restore((model, opt))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--smoke", "--steps", "1", "--data", str(tmp_path / "d"),
+              "--ckpt", str(tmp_path / "ck2")])
+    assert not os.path.exists(tmp_path / "d")
