@@ -6,7 +6,10 @@
 Drives the port's three main paths. Serving: full-width llama3.2-1b
 (random weights from the seed, bf16) served by ``ServeEngine``: 8 prompts of
 512 tokens, a prefill and 32 greedy decode steps, with prefill attention in
-the hand-written flash-attention kernel. The predicate read:
+the hand-written flash-attention kernel; then the other attention block
+families the same way at full width (gemma3-12b, deepseek-moe-16b and
+starcoder2-15b at full depth, mixtral-8x22b on 2 layers), with windowed
+prefill attention in the same kernel. The predicate read:
 ``dataset(p, device="cuda").select(...).where(...).to_table()`` over a 4 Mi-row
 ads table, the LM corpus and a 4 Mi-row table of quantized columns, written
 by the port's writer, with the dequantize of BF16 and affine-integer columns
@@ -26,12 +29,14 @@ Phases, one JSON line each:
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 26 cases
+  3. kernels        -- flash attention against its plain version, 31 cases
                        (the training shape at f32 among them), each
                        through "auto" and through every body that
                        takes it (wgmma, mma for bf16; simt for f32); 9 of
                        them with 128 < D <= 256, where "auto" takes mma
-                       (bf16) or simt (f32)
+                       (bf16) or simt (f32); the last 5 at the prefill
+                       shapes of phase families (gemma3-12b's with and
+                       without its window)
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -67,40 +72,63 @@ Phases, one JSON line each:
                        version; the event time of back-to-back calls; the
                        mma body at a gemma3-12b prefill (D = 256) the same
                        way
- 11. filter_times   -- the range filter at C=4, N=2**20 against its bound
+ 11. window_times   -- the mma body at a gemma3-12b local layer's prefill
+                       (B=2, S=2048, 16/8 heads of 256, window 1024) warm
+                       and cold, against the bound of the window's live
+                       pairs, its plain version and SDPA with the
+                       equivalent boolean mask
+ 12. families       -- the attention block families served at full width
+                       through ServeEngine in bf16: gemma3-12b (48 layers,
+                       B=2, prompt 2048, 32 new tokens: 48 flash launches
+                       a prefill, all mma, 40 with window=1024),
+                       deepseek-moe-16b (28 layers, B=8, prompt 512: 28
+                       wgmma), starcoder2-15b (40 layers, B=8, prompt
+                       512) and mixtral-8x22b (2 of its 56 layers, B=8,
+                       prompt 512); each family's prefill and decode
+                       times, bounds, peak memory, a profiled prefill
+                       and 4 decode steps (flash share, expert products'
+                       device ms, pairs dropped by capacity), host
+                       seconds; then family_logits at full width and one
+                       pattern repeat: gemma3-12b at 6 layers with a
+                       prompt of 1100 (past its window) and
+                       deepseek-moe-16b at 2 layers (dense + MoE, capacity
+                       for every pair): prefill through the kernel vs the
+                       plain version with f32 probabilities, greedy decode
+                       vs a fresh prefill
+ 13. filter_times   -- the range filter at C=4, N=2**20 against its bound
                        and its plain version
- 12. dequant_times  -- the column-list body at the ads payload's launch
+ 14. dequant_times  -- the column-list body at the ads payload's launch
                        shape (12 BF16 columns of 2**20 rows) and on one
                        column, the [R, C] body on one column, the
                        bench_quantization probe and an INT16 column, against
                        the bound, the plain version and, for bf16 bits, the
                        PyTorch call
- 13. bitunpack_times -- the unpack kernel at 2**24 values, widths 1, 4, 11
+ 15. bitunpack_times -- the unpack kernel at 2**24 values, widths 1, 4, 11
                         and 32
- 14. scan           -- the read path: launch counts per scan (the filter once
+ 16. scan           -- the read path: launch counts per scan (the filter once
                        a row group evaluated, the column-list dequant once a
                        decode call with a BF16 or affine column), results
                        equal to the NumPy route, serially and on 4 threads,
                        scan times, and the time split (host stages, device
                        copies and kernels)
- 15. compliance     -- delete_where on copies of the ads table (a float32
+ 17. compliance     -- delete_where on copies of the ads table (a float32
                        range over two dense features at L2 and L1, 16 users
                        at L2): files byte-identical to the device="cpu"
                        route's, the audit, the rows left, the launches,
                        the I/O ratio and the host time of each delete
- 16. sink           -- write_to of the ads query, dequantized, sorted by
+ 18. sink           -- write_to of the ads query, dequantized, sorted by
                        dense_0, in shards of 2**19 rows: shards
                        byte-identical to the cpu route's, read back equal to
                        the scan sorted, the launches; the sink of an L1
                        deleted copy leaves no raw occurrence
- 17. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
+ 19. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
                        the cpu loader, a mid-epoch resume, the filter's
                        launches with the loader's thread and a main-thread
                        scan reading at once, tokens per second;
                        quality_filtered_read against its cpu route
- 18. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
+ 20. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
                        in a fresh interpreter, Prometheus text round trip
- 19. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
+ 21. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
                        train_tokens_per_s beside the bound, peak memory,
                        flash launches (2 x 16 a step, all simt), finite
                        losses; one step traced by kernel (GEMMs, flash
@@ -114,7 +142,7 @@ Phases, one JSON line each:
                        at bf16 compute (all wgmma); the launcher at --smoke
                        to step 6, then resumed to 8; a restored step equal
                        to the uninterrupted one
- 20. train_times    -- flash attention at the training shape (f32, simt)
+ 22. train_times    -- flash attention at the training shape (f32, simt)
                        against its bound, its plain version and SDPA, warm
                        and cold; the plain backward's device time
 
@@ -205,6 +233,7 @@ def zero_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     for body in flash_attention.launches_by_body:
         flash_attention.launches_by_body[body] = 0
+    flash_attention.launches_by_window.clear()
 
 
 def counts() -> dict:
@@ -268,6 +297,35 @@ TRAIN_CASE = dict(SERVE_CASE, dtype=torch.float32)
 WIDE_CASE = dict(B=2, H=16, Hkv=8, S=1024, D=256, dtype=torch.bfloat16,
                  causal=True, window=0, kv_len=None, layout="bshd")
 
+# phase families: each model at full width, served at bf16 (B, prompt P,
+# `new` greedy tokens, `max_seq` cache positions); `layers` cuts the depth
+# where the whole model does not fit one card (mixtral-8x22b: 281 GB)
+FAMILY_RUNS = (
+    dict(arch="gemma3_12b", B=2, P=2048, new=32, max_seq=2080),
+    dict(arch="deepseek_moe_16b", B=8, P=512, new=32, max_seq=1024),
+    dict(arch="starcoder2_15b", B=8, P=512, new=32, max_seq=1024),
+    dict(arch="mixtral_8x22b", B=8, P=512, new=32, max_seq=1024, layers=2),
+)
+
+
+def _family_cfg(run):
+    import repro_torch.configs as configs
+    cfg = configs.get(run["arch"]).scaled(compute_dtype="bfloat16")
+    if run.get("layers"):
+        (blocks, _), = cfg.segments
+        cfg = cfg.scaled(segments=((blocks, run["layers"] // len(blocks)),))
+    return cfg
+
+
+def _windows(cfg) -> dict:
+    """{window the flash kernel is given: layers} of a prefill."""
+    out: dict = {}
+    for blocks, rep in cfg.segments:
+        for b in blocks:
+            w = cfg.window if b.split(":")[0] in ("window", "local") else 0
+            out[w] = out.get(w, 0) + rep
+    return out
+
 
 def kernel_cases() -> list[dict]:
     base = dict(B=1, H=2, Hkv=2, causal=True, window=0, kv_len=None,
@@ -302,6 +360,14 @@ def kernel_cases() -> list[dict]:
         ]
     cases.append(dict(base, B=1, H=4, Hkv=2, S=300, D=200,
                       dtype=torch.bfloat16, layout="bshd"))     # D % 16 != 0
+    # the prefill shapes of phase families, bf16 on the model's layout
+    for run in FAMILY_RUNS:
+        cfg = _family_cfg(run)
+        for window in sorted(_windows(cfg)):
+            cases.append(dict(B=run["B"], H=cfg.n_heads, Hkv=cfg.n_kv_heads,
+                              S=run["P"], D=cfg.head_dim,
+                              dtype=torch.bfloat16, causal=True,
+                              window=window, kv_len=None, layout="bshd"))
     return cases
 
 
@@ -318,14 +384,14 @@ def _bodies(q, k, v) -> tuple[str, list]:
             [b for b in BODIES if takes(b, q.dtype, D, strides, ptrs)])
 
 
-def phase_kernels(seed: int) -> tuple[float, float, float]:
+def phase_kernels(seed: int) -> tuple[float, float, float, float]:
     """The kernel vs attention_ref on the card, each case through "auto"
     and through every body that takes it; returns the wgmma body's error
-    at the serving shape, the mma body's at WIDE_CASE and the simt body's
-    at TRAIN_CASE."""
+    at the serving shape, the mma body's at WIDE_CASE, the simt body's
+    at TRAIN_CASE and the mma body's at GEMMA_LOCAL."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
-    serve_err = wide_err = train_err = None
+    serve_err = wide_err = train_err = window_err = None
     for i, c in enumerate(kernel_cases()):
         rng = np.random.default_rng(seed + i)
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
@@ -373,7 +439,11 @@ def phase_kernels(seed: int) -> tuple[float, float, float]:
                 wide_err = err
             if c == TRAIN_CASE and body == "simt":
                 train_err = err
-    return serve_err, wide_err, train_err
+            if body == "mma" and [c[k] for k in GEMMA_LOCAL] == \
+                    list(GEMMA_LOCAL.values()):
+                window_err = err
+    check(window_err is not None, "no kernel case at GEMMA_LOCAL")
+    return serve_err, wide_err, train_err, window_err
 
 
 def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
@@ -598,10 +668,18 @@ def _mufu_ex2_per_s() -> float:
     return 16 * sms * float(mhz) * 1e6
 
 
-def _flash_work(B, H, Hkv, S, D, size):
+def _live_pairs(S: int, window: int = 0) -> int:
+    """Live (query, key) pairs of a causal call over S positions: query i
+    sees i + 1 keys, at most ``window`` of them where window > 0."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _flash_work(B, H, Hkv, S, D, size, window=0):
     """Bytes a causal call must move (each input read once, the output
     written once) and the products of its live (query, key) pairs."""
-    live_pairs = B * H * S * (S + 1) // 2
+    live_pairs = B * H * _live_pairs(S, window)
     return (2 * B * S * H + 2 * B * S * Hkv) * D * size, 4 * D * live_pairs, \
         live_pairs
 
@@ -655,6 +733,301 @@ def phase_times(seed: int) -> tuple[dict, dict]:
          exp_ms=live_pairs / _mufu_ex2_per_s() * 1e3,
          mma_over_library=wide["ms"] / wide["library_ms"], **wide)
     return row, wide
+
+
+GEMMA_LOCAL = dict(B=2, H=16, Hkv=8, S=2048, D=256, window=1024)
+GEMM_NAMES = ("gemm", "nvjet", "cutlass")   # cuBLAS's kernels by name
+
+
+def phase_window_times(seed: int) -> dict:
+    """The mma body at a gemma3-12b local layer's prefill (GEMMA_LOCAL: a
+    prompt of twice the window, so the kernel skips the key tiles before
+    it), warm and cold in L2, against the bound of the window's live pairs,
+    its plain version and SDPA given the equivalent boolean mask."""
+    from repro_torch.kernels.flash_attention import attention, attention_ref
+    c = GEMMA_LOCAL
+    B, H, Hkv, S, D, W = (c[k] for k in ("B", "H", "Hkv", "S", "D", "window"))
+    q, k, v = _inputs(np.random.default_rng(seed), B, H, Hkv, S, D,
+                      torch.bfloat16, "bshd")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size(), window=W)
+    row, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=True, window=W, body="mma"),
+        lambda: attention_ref(qt, kt, vt, causal=True, window=W),
+        bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    emit("window_times", shape=[B, H, Hkv, S, D], dtype="bfloat16",
+         causal=True, window=W, body="mma", **extra, live_scores=live_pairs,
+         live_share=live_pairs / (B * H * S * (S + 1) // 2),
+         library_call="SDPA, boolean causal-and-window mask",
+         mma_over_library=row["ms"] / row["library_ms"], **row)
+    return row
+
+
+@contextlib.contextmanager
+def _moe_probes(drops: list):
+    """Name the routed experts' products in the profiler (a record_function
+    range around ``moe._experts``) and keep each dispatch's dropped pairs
+    (a device tensor, so nothing waits for the card) in ``drops``."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe
+    saved = moe._experts, moe._dispatch
+
+    def experts(*a, **k):
+        with record_function("moe_experts"):
+            return saved[0](*a, **k)
+
+    def dispatch(xt, idx, E, C):
+        out = saved[1](xt, idx, E, C)
+        drops.append(((~out[2]).sum(), out[2].numel()))
+        return out
+
+    moe._experts, moe._dispatch = experts, dispatch
+    try:
+        yield
+    finally:
+        moe._experts, moe._dispatch = saved
+
+
+def _family_profile(model, prompts, max_seq: int, steps: int = 4) -> dict:
+    """One prefill and ``steps`` decode steps under torch.profiler: device
+    time, busy share, the flash kernel's and the GEMMs' device time, the
+    routed experts' device time (range ``moe_experts``), and the pairs
+    dropped by capacity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+        cache = model.init_cache(toks.shape[0], max_seq, dtype=torch.float32)
+        for what in ("prefill", f"decode_{steps}_steps"):
+            drops: list = []
+            torch.cuda.synchronize()
+            with _moe_probes(drops), profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                if what == "prefill":
+                    lg, cache = model.prefill({"tokens": toks}, cache)
+                else:
+                    for _ in range(steps):
+                        lg, cache = model.decode_step(
+                            cache, lg.argmax(-1)[:, None])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev, table = _kernel_table(prof, top=6, ranges=("moe_experts",))
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0
+                       and e.key != "moe_experts"]
+            experts = max([e.device_time_total for e in prof.key_averages()
+                           if e.key == "moe_experts"], default=0)
+            flash = sum(e.self_device_time_total for e in kernels
+                        if "flash_fwd" in e.key)
+            out[what] = dict(
+                wall_ms=wall * 1e3, device_ms=dev / 1e3,
+                busy_share=dev / 1e3 / (wall * 1e3),
+                flash_ms=flash / 1e3, flash_share=flash / dev if dev else None,
+                gemm_ms=sum(e.self_device_time_total for e in kernels
+                            if any(n in e.key.lower() for n in GEMM_NAMES))
+            / 1e3,
+                moe_experts_ms=experts / 1e3,
+                dropped_pairs=int(sum(int(d) for d, _ in drops)),
+                routed_pairs=int(sum(n for _, n in drops)), top=table)
+    return out
+
+
+def _serve_bounds(model, cfg, B: int, P: int, max_seq: int) -> dict:
+    """Least times of the serving path. A prefill does the products of
+    every non-embedding weight a token uses (the routed experts' top_k of
+    n_experts), the causal attention's live pairs (within the window where
+    there is one) and the last token's logits; it reads every weight once.
+    A decode step reads every weight but the unrouted experts' (at most
+    B * top_k of n_experts a layer) and the whole f32 cache once."""
+    from repro_torch.models import transformer as tf
+    head = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    expert = sum(p.numel() for n, p in model.named_parameters()
+                 if ".moe.w" in n)
+    share = cfg.top_k / cfg.n_experts if expert else 0.0
+    active = model.n_params - head - expert + expert * share
+    live = sum(rep * _live_pairs(P, w) for w, rep in _windows(cfg).items())
+    flops = (2 * active * B * P + 4 * cfg.head_dim * cfg.n_heads * B * live
+             + 2 * cfg.vocab * cfg.d_model * B)
+    size = 2                                            # bf16 weights
+    param_bytes = model.n_params * size
+    cache_bytes = sum(
+        2 * rep * B * tf.cache_slots(cfg, b.split(":")[0], max_seq)
+        * cfg.n_kv_heads * cfg.head_dim * 4
+        for blocks, rep in cfg.segments for b in blocks)
+    routed = min(1.0, B * share) if expert else 0.0
+    step_bytes = (param_bytes - expert * size * (1 - routed)) + cache_bytes
+    prefill_s = max(flops / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S)
+    return dict(prefill_bound_ms=prefill_s * 1e3, prefill_flops=int(flops),
+                decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3,
+                decode_bytes_per_step=int(step_bytes),
+                cache_bytes=int(cache_bytes))
+
+
+def _serve_family(seed: int, run: dict) -> int:
+    """One family's main path: build at full width (depth as FAMILY_RUNS
+    says), serve through ServeEngine, check the launches (one a layer in
+    the prefill, the body the rule gives, each with its block's window)
+    and the tokens, then profile a prefill and 4 decode steps. Returns the
+    flash launches of the main path."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.zoo import build
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = _family_cfg(run)
+    full_layers = configs.get(run["arch"]).n_layers
+    B, P, new, max_seq = run["B"], run["P"], run["new"], run["max_seq"]
+    model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, P)).astype(np.int32)
+    eng = ServeEngine(model, max_seq=max_seq, device="cuda")
+    eng.generate(prompts, max_new_tokens=2)                    # warm-up
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = eng.generate(prompts, max_new_tokens=new)            # the main path
+    launched = counts()
+    by_body = {b: n for b, n in flash_attention.launches_by_body.items() if n}
+    by_window = dict(flash_attention.launches_by_window)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    body = "mma" if cfg.head_dim > 128 else "wgmma"
+    check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
+                           dequant=0, dequant_packed=0, bitunpack=0),
+          f"{cfg.name}: serving launched {launched}, expected "
+          f"flash_attention {cfg.n_layers} times and no other kernel")
+    check(by_body == {body: cfg.n_layers},
+          f"{cfg.name}: bodies {by_body}, expected {body} {cfg.n_layers} times")
+    check(by_window == _windows(cfg),
+          f"{cfg.name}: launches by window {by_window}, expected "
+          f"{_windows(cfg)}")
+    gen = out["tokens"]
+    check(gen.shape == (B, new) and
+          bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"{cfg.name}: generated tokens")
+    prof = _family_profile(model, prompts, max_seq)
+    check(prof["prefill"]["dropped_pairs"] <= prof["prefill"]["routed_pairs"],
+          "drop counts")
+    emit("families", arch=cfg.name, n_params=model.n_params,
+         n_layers=cfg.n_layers, full_depth_layers=full_layers,
+         batch=B, prompt_len=P,
+         new_tokens=new, max_seq=max_seq, window=cfg.window
+         if any(_windows(cfg)) else None, init_s=init_s,
+         prefill_ms=out["prefill_s"] * 1e3,
+         decode_ms_per_step=out["decode_s"] * 1e3 / new,
+         decode_tok_per_s=out["decode_tok_per_s"],
+         **_serve_bounds(model, cfg, B, P, max_seq),
+         flash_launches_per_prefill=launched["flash_attention"],
+         flash_launches_by_body=by_body,
+         flash_launches_by_window={str(w): n for w, n in by_window.items()},
+         peak_mem_gb=peak_gb, first_tokens=gen[0, :8].tolist(),
+         profile=prof, host_s=time.perf_counter() - t0)
+    del eng, model
+    torch.cuda.empty_cache()
+    return launched["flash_attention"]
+
+
+def _family_logits(cfg, seed: int, B: int, P: int, steps: int) -> None:
+    """At full width and one pattern repeat. Prefill: the logits through
+    the kernel against the same model with the plain version of attention
+    in its place, computed with unrounded (f32) probabilities, the closer
+    of the two plain versions to exact arithmetic; the bf16-probability
+    plain version is printed beside it, with its own distance from the f32
+    one: what rounding the probabilities alone does to these logits, more
+    than the bound for deepseek-moe-16b (PERF.md). Decode: greedy steps
+    against a fresh prefill of prompt + generated tokens through the
+    kernel, as in phase logits (the cache's history came from the kernel);
+    the fresh prefill through the bf16-probability plain version is
+    printed beside it. Bound as in phase logits: 2e-2 x max|ref| + 1e-3,
+    bf16's rounding (2**-8 relative, a few roundings deep) with room for
+    the sums' order."""
+    from repro_torch.models.zoo import build
+    model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    prompts = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (B, P))
+    max_seq = P + steps
+    plain32 = functools.partial(_plain, f32=True)
+
+    def prefill(toks, attn=None):
+        cache = model.init_cache(B, max_seq, dtype=torch.float32)
+        if attn is None:
+            return model.prefill({"tokens": toks}, cache)
+        with model_attention(attn):
+            return model.prefill({"tokens": toks}, cache)
+
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+        lg, cache = prefill(toks)
+        lg_plain32, _ = prefill(toks, plain32)
+        lg_plain, _ = prefill(toks, _plain)
+        check(bool(torch.isfinite(lg).all()), f"{cfg.name}: prefill logits")
+        err, bound = _bound(lg_plain32, lg)
+        emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+             window=cfg.window if any(_windows(cfg)) else None, prompt_len=P,
+             check="prefill_kernel_vs_plain_f32_probs", max_abs_err=err,
+             bound=bound, kernel_vs_plain=_bound(lg_plain, lg)[0],
+             plain_vs_plain_f32_probs=_bound(lg_plain32, lg_plain)[0])
+        check(err < bound, f"{cfg.name} prefill logits: {err} >= {bound}")
+        gen = [lg.argmax(-1)[:, None]]
+        for i in range(steps):
+            lg_dec, cache = model.decode_step(cache, gen[-1])
+            if i in (0, steps - 1):
+                seq = torch.cat([toks, *gen], dim=1)
+                lg_full, _ = prefill(seq)
+                lg_full_plain, _ = prefill(seq, _plain)
+                check(bool(torch.isfinite(lg_dec).all()),
+                      f"{cfg.name}: decode logits")
+                err, bound = _bound(lg_full, lg_dec)
+                emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+                     check="decode_vs_fresh_prefill", step=i,
+                     position=P + i, max_abs_err=err, bound=bound,
+                     decode_vs_fresh_prefill_plain=_bound(lg_full_plain,
+                                                          lg_dec)[0])
+                check(err < bound, f"{cfg.name} decode step {i}: "
+                      f"{err} >= {bound}")
+            gen.append(lg_dec.argmax(-1)[:, None])
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def phase_families(seed: int) -> dict:
+    """The attention block families served at full width: gemma3-12b and
+    deepseek-moe-16b and starcoder2-15b at full depth, mixtral-8x22b on 2
+    of its 56 layers; then the one-repeat logit checks (gemma3-12b at 6
+    layers with a prompt past its window, deepseek-moe-16b at a dense and
+    a MoE layer with capacity for every pair, so that decode and prefill
+    drop nothing). Returns the flash launches of each main path and each
+    family's host seconds."""
+    import repro_torch.configs as configs
+    launches, host_s = {}, {}
+    for run in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        launches[run["arch"]] = _serve_family(seed, run)
+        host_s[run["arch"]] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gemma = configs.get("gemma3_12b")
+    (blocks, _), = gemma.segments
+    _family_logits(gemma.scaled(compute_dtype="bfloat16",
+                                segments=((blocks, 1),)),
+                   seed, B=2, P=1100, steps=8)
+    deepseek = configs.get("deepseek_moe_16b")
+    _family_logits(deepseek.scaled(
+        compute_dtype="bfloat16",
+        capacity_factor=deepseek.n_experts / deepseek.top_k,
+        segments=((("full:swiglu",), 1), (("full:moe",), 1))),
+        seed, B=2, P=512, steps=8)
+    host_s["logit_checks"] = time.perf_counter() - t0
+    emit("families", host_s=host_s)
+    return launches
 
 
 FILTER_CS = (1, 2, 4, 8)
@@ -2185,7 +2558,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t0 = time.perf_counter()
     phase_build()
-    serve_err, wide_err, train_err = phase_kernels(args.seed)
+    serve_err, wide_err, train_err, window_err = phase_kernels(args.seed)
     filter_err = phase_filter_kernels(args.seed)
     dequant_err = phase_dequant_kernels(args.seed)
     bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
@@ -2195,6 +2568,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_logits(args.seed, gen)
     row, wide = phase_times(args.seed)
+    window_row = phase_window_times(args.seed)
+    t1 = time.perf_counter()
+    family_launches = phase_families(args.seed)
+    families_s = time.perf_counter() - t1
     filter_row = phase_filter_times(args.seed)
     dequant_row = phase_dequant_times(args.seed)
     bitunpack_row = phase_bitunpack_times(args.seed)
@@ -2229,10 +2606,16 @@ def main(argv=None) -> int:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:91",
              launches=launches, max_abs_err=serve_err, **row,
-             launches_by_phase={"serve": launches, "train": train["launches"]},
+             launches_by_phase={"serve": launches, "train": train["launches"],
+                                 **{f"families_{arch}": n for arch, n
+                                    in family_launches.items()}},
              d256=dict(body="mma", shape=[WIDE_CASE[k] for k in "B H Hkv S D"
                                           .split()],
                        max_abs_err=wide_err, **wide),
+             d256_window=dict(body="mma", window=GEMMA_LOCAL["window"],
+                              shape=[GEMMA_LOCAL[k] for k in
+                                     "B H Hkv S D".split()],
+                              max_abs_err=window_err, **window_row),
              train=dict(body="simt", dtype="float32",
                         shape=[TRAIN_CASE[k] for k in "B H Hkv S D".split()],
                         launches_per_step=2 * train["n_layers"],
@@ -2257,7 +2640,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/bitunpack/kernel.py:33",
              launches=bitunpack_launches, max_abs_err=bitunpack_err,
              **bitunpack_row)]}), flush=True)
-    emit("done", seconds=time.perf_counter() - t0, read_phase_s=phase_s)
+    emit("done", seconds=time.perf_counter() - t0, read_phase_s=phase_s,
+         families_s=families_s)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

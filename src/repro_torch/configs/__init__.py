@@ -18,7 +18,15 @@ ARCHS = (
     "recurrentgemma_9b", "chameleon_34b",
 )
 
-PORTED = ("llama3_2_1b",)
+PORTED = ("llama3_2_1b", "gemma3_12b", "starcoder2_15b", "chameleon_34b",
+          "deepseek_moe_16b", "mixtral_8x22b")
+# the ROADMAP.md item that ports each of the others
+_LATER = {
+    "minicpm3_4b": "MLA + minicpm3-4b",
+    "recurrentgemma_9b": "RG-LRU + recurrentgemma-9b",
+    "rwkv6_7b": "RWKV-6 + rwkv6-7b",
+    "whisper_base": "enc-dec + whisper-base",
+}
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 _ALIAS.update({
@@ -37,7 +45,7 @@ def _module(name: str):
     if key not in PORTED:
         raise NotImplementedError(
             f"arch {key!r} is not ported yet: its blocks come with the "
-            "'other block families' slice of ROADMAP.md")
+            f"{_LATER[key]} item of ROADMAP.md")
     return import_module(f".{key}", __package__)
 
 

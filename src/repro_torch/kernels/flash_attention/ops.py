@@ -3,9 +3,11 @@
 ``flash_attention`` keeps the JAX wrapper's ``[B, H, S, D]`` layout
 (``repro.kernels.flash_attention.ops``); ``attention`` is the layout-free
 entry the model uses, on ``[B, S, H, D]`` views. A CUDA tensor launches the
-kernel (and adds one to ``flash_attention.launches`` and to the launched
-body's entry of ``flash_attention.launches_by_body``); a CPU tensor takes
-the plain version, ``attention_ref``. Nothing falls back from the kernel.
+kernel (and adds one to ``flash_attention.launches``, to the launched
+body's entry of ``flash_attention.launches_by_body`` and to the window's
+entry of ``flash_attention.launches_by_window``, 0 for none); a CPU
+tensor takes the plain version, ``attention_ref``. Nothing falls back from
+the kernel.
 
 An input that requires grad takes ``attention`` through ``_Attention``, a
 ``torch.autograd.Function``: its forward is the same launch (or the plain
@@ -38,6 +40,8 @@ def _launch(q, k, v, *, causal, window, kv_len, body):
                                kv_len=kv_len, body=body)
     flash_attention.launches += 1
     flash_attention.launches_by_body[used] += 1
+    by_window = flash_attention.launches_by_window
+    by_window[window] = by_window.get(window, 0) + 1
     return out
 
 
@@ -115,3 +119,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+flash_attention.launches_by_window = {}

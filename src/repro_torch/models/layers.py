@@ -1,5 +1,6 @@
 """Transformer layers as plain functions on tensors, ported from
-``repro.models.layers``: RMSNorm, RoPE, GQA attention, SwiGLU.
+``repro.models.layers``: RMSNorm, LayerNorm, RoPE, GQA attention (full,
+sliding-window, local), SwiGLU and GELU MLPs.
 
 Parameters are dict-like (a plain dict of tensors or a ``ParamTree``) and
 keep the JAX layouts: ``wq [d, H, D]``, ``wo [H, D, d]``, ``w_gate [d, ff]``.
@@ -30,6 +31,20 @@ def rmsnorm(p, x, eps: float = 1e-6):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_decl(d: int) -> dict:
+    return {"scale": P((d,), (None,), init="ones"),
+            "bias": P((d,), (None,), init="zeros")}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """Statistics, scale and bias in f32; the result in x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -155,3 +170,18 @@ def swiglu(p, x):
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+def gelu_mlp_decl(d: int, ff: int) -> dict:
+    return {"w_up": P((d, ff), ("embed", "ff")),
+            "b_up": P((ff,), ("ff",), init="zeros"),
+            "w_down": P((ff, d), ("ff", "embed")),
+            "b_down": P((d,), (None,), init="zeros")}
+
+
+def gelu_mlp(p, x):
+    """``jax.nn.gelu``'s default is the tanh approximation, so this is too
+    (PyTorch's default is erf)."""
+    h = x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype)
+    h = F.gelu(h, approximate="tanh")
+    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)

@@ -3,16 +3,20 @@
 Depth is segments of repeating block patterns. The reference stacks each
 block's parameters over the repeat count and runs ``jax.lax.scan``; here the
 layers are a ``ModuleList`` walked by a Python loop. Caches keep the
-reference's stacked layout, ``[layers, B, S, Hkv, D]``, and are updated in
-place (a decode step writes one slot instead of copying the cache).
+reference's stacked layout, ``[layers, B, S, Hkv, D]`` per block, and are
+updated in place (a decode step writes one slot instead of copying the
+cache).
 
-Ported: ``full``/``global`` attention with ``swiglu`` MLPs, in ``prefill``,
-``decode`` and ``train`` modes. Prefill and training attention run the
-flash-attention kernel (training through its autograd Function, with a
-plain backward); decode attention (one query over the cache, with
-``kv_valid``) stays plain PyTorch, as the reference leaves it to XLA
-outside any kernel. Training rematerialises each layer, as the reference's
-``jax.checkpoint`` of its scan body does.
+Ported: ``full``/``global`` attention and the windowed ``window``/``local``
+attention, with ``swiglu``, ``gelu`` or ``moe`` MLPs and RMSNorm or
+LayerNorm, in ``prefill``, ``decode`` and ``train`` modes. A windowed
+block's cache is a rolling buffer of ``min(window, seq_len)`` slots: slot
+``pos % S`` holds position ``pos`` (``_rolling_pos``). Prefill and training
+attention run the flash-attention kernel with the block's window (training
+through its autograd Function, with a plain backward); decode attention
+(one query over the cache, with ``kv_valid``) stays plain PyTorch, as the
+reference leaves it to XLA outside any kernel. Training rematerialises each
+layer, as the reference's ``jax.checkpoint`` of its scan body does.
 """
 
 from __future__ import annotations
@@ -25,20 +29,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention
+from . import moe as moe_mod
 from .base import P
 from .config import ModelConfig
 from .layers import (attention_decl, attn_out, attn_qkv, dot_attention,
+                     gelu_mlp, gelu_mlp_decl, layernorm, layernorm_decl,
                      rmsnorm, rmsnorm_decl, swiglu, swiglu_decl)
 
-_LATER = "the 'other block families' slice of ROADMAP.md"
+_LATER = {
+    "mla": "the MLA + minicpm3-4b item of ROADMAP.md",
+    "rglru": "the RG-LRU + recurrentgemma-9b item of ROADMAP.md",
+    "rwkv": "the RWKV-6 + rwkv6-7b item of ROADMAP.md",
+}
+ATTN_KINDS = ("full", "window", "local", "global")
+WINDOWED = ("window", "local")
+MLP_KINDS = ("swiglu", "gelu", "moe")
 
 
-def _check_block(cfg: ModelConfig, block: str) -> None:
+def _check_block(block: str) -> tuple[str, str]:
     attn_kind, mlp_kind = block.split(":")
-    if attn_kind not in ("full", "global") or mlp_kind != "swiglu":
-        raise NotImplementedError(f"block {block!r} is not ported yet: {_LATER}")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet: {_LATER}")
+    if attn_kind in _LATER:
+        raise NotImplementedError(
+            f"block {block!r} is not ported yet: {_LATER[attn_kind]}")
+    if attn_kind not in ATTN_KINDS or mlp_kind not in MLP_KINDS:
+        raise ValueError(f"unknown block {block!r}")
+    return attn_kind, mlp_kind
 
 
 # ---------------------------------------------------------------------------
@@ -46,27 +61,44 @@ def _check_block(cfg: ModelConfig, block: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _norm_decl(cfg: ModelConfig) -> dict:
+    return rmsnorm_decl(cfg.d_model) if cfg.norm == "rmsnorm" \
+        else layernorm_decl(cfg.d_model)
+
+
+def _norm(cfg: ModelConfig, p, x):
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
 def block_decl(cfg: ModelConfig, block: str) -> dict:
-    _check_block(cfg, block)
-    return {
-        "ln_attn": rmsnorm_decl(cfg.d_model),
+    _, mlp_kind = _check_block(block)
+    decl = {
+        "ln_attn": _norm_decl(cfg),
         "attn": attention_decl(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, qk_norm=cfg.qk_norm,
                                fused=cfg.fused_qkv),
-        "ln_mlp": rmsnorm_decl(cfg.d_model),
-        "mlp": swiglu_decl(cfg.d_model, cfg.d_ff),
+        "ln_mlp": _norm_decl(cfg),
     }
+    if mlp_kind == "moe":
+        decl["moe"] = moe_mod.moe_decl(cfg)
+    elif mlp_kind == "gelu":
+        decl["mlp"] = gelu_mlp_decl(cfg.d_model, cfg.d_ff)
+    else:
+        decl["mlp"] = swiglu_decl(cfg.d_model, cfg.d_ff)
+    return decl
 
 
 def model_decl(cfg: ModelConfig) -> dict:
     """The reference's declaration with each stacked block unstacked into a
     list of per-layer declarations."""
     if cfg.encoder is not None:
-        raise NotImplementedError(f"encoder-decoder is not ported yet: {_LATER}")
+        raise NotImplementedError(
+            "encoder-decoder is not ported yet: the enc-dec + whisper-base "
+            "item of ROADMAP.md")
     decl: dict = {
         "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), init="embed",
                    scale=0.02),
-        "final_norm": rmsnorm_decl(cfg.d_model),
+        "final_norm": _norm_decl(cfg),
     }
     if not cfg.tie_embeddings:
         decl["lm_head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
@@ -83,20 +115,38 @@ def model_decl(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def cache_slots(cfg: ModelConfig, attn_kind: str, seq_len: int) -> int:
+    """Slots of a block's cache: ``seq_len`` for full/global attention, a
+    rolling ``min(window, seq_len)`` for window/local."""
+    return min(cfg.window, seq_len) if attn_kind in WINDOWED else seq_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """``{"pos": 0, "segments": [{"b{j}": {"k", "v"}}]}`` with k, v of shape
-    ``[repeat, batch, seq_len, Hkv, D]``, zeros."""
+    ``[repeat, batch, slots, Hkv, D]`` (``cache_slots``), zeros."""
     segs = []
     for blocks, rep in cfg.segments:
         seg = {}
         for j, b in enumerate(blocks):
-            _check_block(cfg, b)
-            shape = (rep, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+            attn_kind, _ = _check_block(b)
+            shape = (rep, batch, cache_slots(cfg, attn_kind, seq_len),
+                     cfg.n_kv_heads, cfg.head_dim)
             seg[f"b{j}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                             "v": torch.zeros(shape, dtype=dtype, device=device)}
         segs.append(seg)
     return {"pos": 0, "segments": segs}
+
+
+def cache_capacity(cfg: ModelConfig, cache: dict) -> Optional[int]:
+    """Positions the cache can hold: the slots of its full/global caches,
+    or None (no limit) where every attention block is windowed, since
+    rolling buffers never fill."""
+    caps = [cache["segments"][si][f"b{j}"]["k"].shape[2]
+            for si, (blocks, _) in enumerate(cfg.segments)
+            for j, b in enumerate(blocks)
+            if _check_block(b)[0] not in WINDOWED]
+    return min(caps) if caps else None
 
 
 # ---------------------------------------------------------------------------
@@ -109,12 +159,21 @@ class Ctx:
     cfg: ModelConfig
     mode: str = "prefill"                       # prefill | decode | train
     positions: Optional[torch.Tensor] = None    # [T]; decode: [cache_pos]
-    cache_pos: int = 0                          # decode: slot of the new token
+    cache_pos: int = 0                          # decode: position of the token
 
 
-def _attn_block(p, x, ctx: Ctx, cache):
+def _rolling_pos(pos: int, W: int, device=None) -> torch.Tensor:
+    """Absolute position held by each slot of a rolling buffer of W slots
+    after position ``pos`` was written (negative: never written)."""
+    slots = torch.arange(W, device=device)
+    return pos - torch.remainder(pos - slots, W)
+
+
+def _attn_block(p, x, kind: str, ctx: Ctx, cache):
     cfg = ctx.cfg
-    xn = rmsnorm(p["ln_attn"], x)
+    windowed = kind in WINDOWED
+    window = cfg.window if windowed else 0
+    xn = _norm(cfg, p["ln_attn"], x)
     q, k, v = attn_qkv(p["attn"], xn, ctx.positions,
                        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
                        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -122,28 +181,45 @@ def _attn_block(p, x, ctx: Ctx, cache):
     if ctx.mode == "decode":
         pos = ctx.cache_pos
         ck, cv = cache["k"], cache["v"]
-        ck[:, pos] = k[:, 0].to(ck.dtype)
-        cv[:, pos] = v[:, 0].to(cv.dtype)
         S = ck.shape[1]
-        kv_pos = torch.arange(S, device=x.device)
-        kv_valid = (kv_pos <= pos)[None, :].expand(x.shape[0], S)
+        slot = pos % S if windowed else pos
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        if windowed:
+            kv_pos = _rolling_pos(pos, S, x.device)
+            kv_valid = kv_pos >= 0
+        else:
+            kv_pos = torch.arange(S, device=x.device)
+            kv_valid = kv_pos <= pos
         o = dot_attention(q, ck.to(x.dtype), cv.to(x.dtype), ctx.positions,
-                          kv_pos, causal=True, kv_valid=kv_valid)
+                          kv_pos, causal=True, window=window,
+                          kv_valid=kv_valid[None, :].expand(x.shape[0], S))
     else:
-        o = attention(q, k, v, causal=True)
+        o = attention(q, k, v, causal=True, window=window)
         if cache is not None:
-            T = x.shape[1]
+            T, S = x.shape[1], cache["k"].shape[1]
             for c, new in ((cache["k"], k), (cache["v"], v)):
-                c[:, :T] = new.to(c.dtype)
-                c[:, T:] = 0
+                if windowed and T > S:
+                    # the last S positions, position t in slot t % S
+                    c.copy_(torch.roll(new[:, T - S:], (T - S) % S, dims=1))
+                else:
+                    c[:, :T] = new.to(c.dtype)
+                    c[:, T:] = 0
     return x + attn_out(p["attn"], o)
 
 
-def apply_block(p, x, ctx: Ctx, cache=None):
-    """One ``full:swiglu`` block; ``cache`` ({"k", "v"} of this layer) is
-    filled (prefill) or extended (decode) in place."""
-    x = _attn_block(p, x, ctx, cache)
-    return x + swiglu(p["mlp"], rmsnorm(p["ln_mlp"], x))
+def apply_block(p, x, block: str, ctx: Ctx, cache=None):
+    """One block; ``cache`` ({"k", "v"} of this layer) is filled (prefill)
+    or extended (decode) in place. Returns (x, aux): the MoE block's
+    load-balancing loss (a 0-d f32 tensor), 0.0 for the others."""
+    attn_kind, mlp_kind = block.split(":")
+    x = _attn_block(p, x, attn_kind, ctx, cache)
+    xn = _norm(ctx.cfg, p["ln_mlp"], x)
+    if mlp_kind == "moe":
+        y, aux = moe_mod.moe_block(p["moe"], xn, ctx.cfg)
+        return x + y, aux
+    mlp = gelu_mlp if mlp_kind == "gelu" else swiglu
+    return x + mlp(p["mlp"], xn), 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +241,9 @@ def logits_fn(params, x, cfg: ModelConfig):
 
 
 def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
-    """x: [B, T, d] embedded inputs -> final-normed hidden [B, T, d].
-    ``cache`` is updated in place (prefill, decode; training takes none).
+    """x: [B, T, d] embedded inputs -> (final-normed hidden [B, T, d], the
+    sum of the blocks' aux losses). ``cache`` is updated in place (prefill,
+    decode; training takes none).
 
     In ``train`` mode each layer runs under a non-reentrant ``checkpoint``:
     its activations are dropped after the forward and recomputed in the
@@ -181,18 +258,21 @@ def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         raise ValueError("decode needs a cache")
     if ctx.mode == "train" and cache is not None:
         raise ValueError("training takes no cache")
+    aux_total = 0.0
     for si, (blocks, rep) in enumerate(cfg.segments):
         seg_params = params["segments"][si]
         seg_cache = cache["segments"][si] if cache is not None else None
         for i in range(rep):
-            for j in range(len(blocks)):
+            for j, block in enumerate(blocks):
                 c = None
                 if seg_cache is not None:
                     c = {n: seg_cache[f"b{j}"][n][i] for n in ("k", "v")}
                 p = seg_params[f"b{j}"][i]
                 if ctx.mode == "train":
-                    x = checkpoint(apply_block, p, x, ctx, use_reentrant=False,
-                                   preserve_rng_state=False)
+                    x, aux = checkpoint(apply_block, p, x, block, ctx,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
                 else:
-                    x = apply_block(p, x, ctx, c)
-    return rmsnorm(params["final_norm"], x)
+                    x, aux = apply_block(p, x, block, ctx, c)
+                aux_total = aux_total + aux
+    return _norm(cfg, params["final_norm"], x), aux_total

@@ -59,13 +59,14 @@ class Model(ParamTree):
     # -- training ---------------------------------------------------------------
     def loss(self, batch: dict):
         """batch: {"tokens": [B, S+1]} (a tensor or array of token ids) ->
-        the mean next-token loss, a 0-d f32 tensor with a graph back to
+        the mean next-token loss plus ``aux_loss_weight`` times the MoE
+        blocks' load-balancing loss, a 0-d f32 tensor with a graph back to
         the parameters that require grad. Each layer is recomputed in the
         backward (``transformer.forward``)."""
         if "frames" in batch:
             raise NotImplementedError(
                 "encoder-decoder inputs (frames) are not ported yet: the "
-                "'other block families' slice of ROADMAP.md")
+                "enc-dec + whisper-base item of ROADMAP.md")
         cfg = self.cfg
         dt = self._dtype()
         params = self
@@ -80,8 +81,7 @@ class Model(ParamTree):
         ctx = tf.Ctx(cfg=cfg, mode="train",
                      positions=torch.arange(T, device=tokens.device))
         x = tf.embed_tokens(params, inputs, cfg, dt)
-        x = tf.forward(params, x, cfg, ctx)
-        aux = 0.0        # no MoE block is ported: nothing adds an aux loss
+        x, aux = tf.forward(params, x, cfg, ctx)
         return (_xent(tf.logits_fn(params, x, cfg), labels)
                 + cfg.aux_loss_weight * aux)
 
@@ -91,32 +91,39 @@ class Model(ParamTree):
 
     def prefill(self, batch: dict, cache: dict):
         """Fill ``cache`` (in place) from a prompt ``batch["tokens"]`` [B, T];
-        returns (last-token logits [B, V], cache)."""
+        returns (last-token logits [B, V], cache). The prompt must fit the
+        full/global caches; rolling (windowed) caches keep its last
+        positions."""
         if "frames" in batch:
             raise NotImplementedError(
                 "encoder-decoder inputs (frames) are not ported yet: the "
-                "'other block families' slice of ROADMAP.md")
+                "enc-dec + whisper-base item of ROADMAP.md")
         tokens = batch["tokens"]
         T = tokens.shape[1]
-        if T > cache["segments"][0]["b0"]["k"].shape[2]:
-            raise ValueError(f"prompt of {T} tokens exceeds the cache")
+        cap = tf.cache_capacity(self.cfg, cache)
+        if cap is not None and T > cap:
+            raise ValueError(f"prompt of {T} tokens exceeds the cache "
+                             f"({cap} positions)")
         ctx = tf.Ctx(cfg=self.cfg, mode="prefill",
                      positions=torch.arange(T, device=tokens.device))
         x = tf.embed_tokens(self, tokens, self.cfg, self._dtype())
-        x = tf.forward(self, x, self.cfg, ctx, cache=cache)
+        x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
         cache["pos"] = T
         return tf.logits_fn(self, x[:, -1], self.cfg), cache
 
     def decode_step(self, cache: dict, tokens):
         """tokens: [B, 1] at position ``cache["pos"]`` -> (logits [B, V],
-        cache), the cache extended in place."""
+        cache), the cache extended in place. Raises once the full/global
+        caches are full; a model whose attention is all windowed decodes
+        without end."""
         pos = cache["pos"]
-        if pos >= cache["segments"][0]["b0"]["k"].shape[2]:
+        cap = tf.cache_capacity(self.cfg, cache)
+        if cap is not None and pos >= cap:
             raise ValueError(f"cache full at position {pos}")
         ctx = tf.Ctx(cfg=self.cfg, mode="decode", cache_pos=pos,
                      positions=torch.arange(pos, pos + 1, device=tokens.device))
         x = tf.embed_tokens(self, tokens, self.cfg, self._dtype())
-        x = tf.forward(self, x, self.cfg, ctx, cache=cache)
+        x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
         cache["pos"] = pos + 1
         return tf.logits_fn(self, x[:, 0], self.cfg), cache
 

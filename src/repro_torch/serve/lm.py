@@ -36,7 +36,7 @@ class ServeEngine:
         if frames is not None:
             raise NotImplementedError(
                 "encoder-decoder inputs (frames) are not ported yet: the "
-                "'other block families' slice of ROADMAP.md")
+                "enc-dec + whisper-base item of ROADMAP.md")
         B, _ = prompts.shape
         with torch.inference_mode():
             cache = self.model.init_cache(B, self.max_seq, dtype=torch.float32)

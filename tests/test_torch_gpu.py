@@ -3,7 +3,9 @@ body, and its autograd Function against autograd through the plain
 version; one training step of the smoke model), range-filter, dequant
 (both bodies) and BP32-unpack kernels against their plain versions, the
 choice of the flash-attention body, the smoke model on CUDA against the
-CPU, and predicate and quantized reads on CUDA against the CPU. They skip where CUDA is absent. On an H100:
+CPU, windowed smoke models (D = 256 and 128) against the plain route, and
+predicate and quantized reads on CUDA against the CPU. They skip where
+CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -150,6 +152,57 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda):
            flash_attention.launches_by_body.items() if n != before[b]}
     assert ran == {"simt": 2 * cfg.n_layers}
     assert abs(losses[1] - losses[0]) < 1e-5 * abs(losses[0])
+
+
+@pytest.mark.parametrize("arch,head_dim,body", [
+    ("gemma3_12b", 256, "mma"),         # local:swiglu x 2 + global, D = 256
+    ("mixtral_8x22b", 128, "wgmma"),    # window:moe, D = 128
+])
+def test_windowed_model_prefill_matches_plain(cuda, arch, head_dim, body):
+    """A smoke-size model of a windowed family in bf16 with the prompt (160)
+    past its window (64): every prefill attention launches the kernel,
+    with the block's window, in the body the rule gives; the logits match
+    the same model with the plain version of attention in its place
+    (chip_smoke.py's bf16 bound, 2e-2 x max + 1e-3)."""
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke(arch).scaled(head_dim=head_dim, window=64,
+                                         capacity_factor=16.0)
+    model = build(cfg, device=cuda, dtype=torch.bfloat16, seed=5)
+    tok = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 160)), device=cuda)
+
+    def prefill():
+        return model.prefill({"tokens": tok}, model.init_cache(
+            2, 192, dtype=torch.float32))[0]
+
+    def plain(q, k, v, **kw):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), **kw).transpose(1, 2)
+
+    with torch.inference_mode():
+        before = (dict(flash_attention.launches_by_body),
+                  dict(flash_attention.launches_by_window))
+        got = prefill()
+        torch.cuda.synchronize()
+        by_body = {b: n - before[0][b] for b, n in
+                   flash_attention.launches_by_body.items() if n != before[0][b]}
+        by_window = {w: n - before[1].get(w, 0) for w, n in
+                     flash_attention.launches_by_window.items()
+                     if n != before[1].get(w, 0)}
+        saved = transformer.attention
+        transformer.attention = plain
+        try:
+            want = prefill()
+        finally:
+            transformer.attention = saved
+    windowed = sum(rep for blocks, rep in cfg.segments for b in blocks
+                   if b.split(":")[0] in ("window", "local"))
+    assert by_body == {body: cfg.n_layers}
+    assert by_window == {64: windowed, **({0: cfg.n_layers - windowed}
+                                          if windowed < cfg.n_layers else {})}
+    assert bool(torch.isfinite(got).all())
+    bound = 2e-2 * want.float().abs().max().item() + 1e-3
+    assert (got.float() - want.float()).abs().max().item() < bound
 
 
 def _filter_inputs(seed, C_, N):
