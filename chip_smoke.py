@@ -29,14 +29,17 @@ Phases, one JSON line each:
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 31 cases
+  3. kernels        -- flash attention against its plain version, 41 cases
                        (the training shape at f32 among them), each
                        through "auto" and through every body that
-                       takes it (wgmma, mma for bf16; simt for f32); 9 of
-                       them with 128 < D <= 256, where "auto" takes mma
-                       (bf16) or simt (f32); the last 5 at the prefill
-                       shapes of phase families (gemma3-12b's with and
-                       without its window)
+                       takes it (wgmma, mma for bf16; simt for f32); 17
+                       of them with 128 < D <= 256, where "auto" takes
+                       wgmma for aligned bf16 with D % 8 == 0, mma for
+                       the other bf16 calls and simt for f32; 4 with
+                       D = 320 and 512 (mma, simt: slices of 256 output
+                       columns); the last 5 at the prefill shapes of
+                       phase families (gemma3-12b's with and without its
+                       window)
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -70,17 +73,19 @@ Phases, one JSON line each:
                        time, warm and cold in L2, against the bound (bytes,
                        products, and exp2 at the MUFU rate) and the plain
                        version; the event time of back-to-back calls; the
-                       mma body at a gemma3-12b prefill (D = 256) the same
-                       way
- 11. window_times   -- the mma body at a gemma3-12b local layer's prefill
+                       wgmma body at a gemma3-12b prefill (D = 256) the
+                       same way, with the mma body's times beside it; the
+                       mma and simt bodies at D = 512
+ 11. window_times   -- the wgmma body at a gemma3-12b local layer's prefill
                        (B=2, S=2048, 16/8 heads of 256, window 1024) warm
                        and cold, against the bound of the window's live
                        pairs, its plain version and SDPA with the
-                       equivalent boolean mask
+                       equivalent boolean mask; the mma body's times
+                       beside it
  12. families       -- the attention block families served at full width
                        through ServeEngine in bf16: gemma3-12b (48 layers,
                        B=2, prompt 2048, 32 new tokens: 48 flash launches
-                       a prefill, all mma, 40 with window=1024),
+                       a prefill, all wgmma, 40 with window=1024),
                        deepseek-moe-16b (28 layers, B=8, prompt 512: 28
                        wgmma), starcoder2-15b (40 layers, B=8, prompt
                        512) and mixtral-8x22b (2 of its 56 layers, B=8,
@@ -280,7 +285,15 @@ def phase_build() -> None:
 
 
 def _inputs(rng, B, H, Hkv, S, D, dtype, layout):
-    """N(0,1) q, k, v from numpy; layout "bshd" (the model's) or "bhsd"."""
+    """N(0,1) q, k, v from numpy; layout "bshd" (the model's), "bhsd", or
+    "fused": [B, S, heads, D] views of one [B, S, (H + 2 Hkv) D] projection,
+    the strided layout a fused qkv weight gives the model."""
+    if layout == "fused":
+        qkv = torch.tensor(rng.normal(size=(B, S, (H + 2 * Hkv) * D)),
+                           dtype=dtype, device="cuda")
+        return [qkv[..., :H * D].unflatten(-1, (H, D)),
+                qkv[..., H * D:(H + Hkv) * D].unflatten(-1, (Hkv, D)),
+                qkv[..., (H + Hkv) * D:].unflatten(-1, (Hkv, D))]
     shapes = [(B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)]
     out = [torch.tensor(rng.normal(size=s), dtype=dtype, device="cuda")
            for s in shapes]
@@ -347,7 +360,8 @@ def kernel_cases() -> list[dict]:
                       dtype=torch.bfloat16, layout="bshd"))     # D = 128, GQA
     cases.append(dict(base, B=1, H=4, Hkv=1, S=200, D=128,
                       dtype=torch.bfloat16, layout="bshd"))     # ragged S
-    # 128 < D <= 256 (gemma3-12b, recurrentgemma-9b): mma for bf16, simt f32
+    # 128 < D <= 256 (gemma3-12b, recurrentgemma-9b): wgmma and mma for
+    # bf16, simt f32
     for dtype in (torch.float32, torch.bfloat16):
         cases += [
             dict(WIDE_CASE, dtype=dtype),           # gemma3-12b prefill, GQA
@@ -360,6 +374,30 @@ def kernel_cases() -> list[dict]:
         ]
     cases.append(dict(base, B=1, H=4, Hkv=2, S=300, D=200,
                       dtype=torch.bfloat16, layout="bshd"))     # D % 16 != 0
+    bf16 = torch.bfloat16
+    cases += [
+        dict(base, B=2, H=8, Hkv=2, S=384, D=192, dtype=bf16,
+             layout="bshd"),                        # D = 192, GQA 4:1
+        dict(base, B=2, H=4, Hkv=4, S=512, D=192, dtype=bf16, window=128,
+             layout="fused"),                       # window, the model's views
+        dict(base, B=1, H=4, Hkv=1, S=300, D=200, dtype=bf16, kv_len=250,
+             layout="bshd"),                        # MQA, kv_len < S
+        dict(base, B=2, H=4, Hkv=2, S=384, D=200, dtype=bf16, causal=False,
+             layout="bhsd"),                        # not causal, strided
+        dict(base, B=2, H=16, Hkv=8, S=1100, D=256, dtype=bf16, window=1024,
+             layout="fused"),                       # gemma3-12b's local layer
+        dict(base, B=1, H=4, Hkv=1, S=1000, D=256, dtype=bf16, causal=False,
+             kv_len=700, layout="fused"),           # MQA, kv_len < S
+    ]
+    # D > 256 (no configuration has one; the reference pads D to a multiple
+    # of 128): mma for bf16, simt f32, a block a slice of 256 columns
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [
+            dict(base, B=1, H=4, Hkv=2, S=300, D=320, dtype=dtype,
+                 window=128, layout="bshd"),        # window, GQA
+            dict(base, B=2, H=4, Hkv=1, S=256, D=512, dtype=dtype,
+                 kv_len=200),                       # MQA, kv_len, strided
+        ]
     # the prefill shapes of phase families, bf16 on the model's layout
     for run in FAMILY_RUNS:
         cfg = _family_cfg(run)
@@ -384,20 +422,30 @@ def _bodies(q, k, v) -> tuple[str, list]:
             [b for b in BODIES if takes(b, q.dtype, D, strides, ptrs)])
 
 
-def phase_kernels(seed: int) -> tuple[float, float, float, float]:
+def _want_body(dtype, D: int) -> str:
+    """The body "auto" must take for a kernel case (every case's layout
+    meets TMA's rules): wgmma for bf16 with D % 8 == 0 up to 256, mma for
+    the other bf16 calls, simt for f32."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if D % 8 == 0 and D <= 256 else "mma"
+
+
+def phase_kernels(seed: int) -> tuple[float, dict, float, dict]:
     """The kernel vs attention_ref on the card, each case through "auto"
     and through every body that takes it; returns the wgmma body's error
-    at the serving shape, the mma body's at WIDE_CASE, the simt body's
-    at TRAIN_CASE and the mma body's at GEMMA_LOCAL."""
+    at the serving shape, the wgmma and mma bodies' at WIDE_CASE, the simt
+    body's at TRAIN_CASE and the wgmma and mma bodies' at GEMMA_LOCAL."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
-    serve_err = wide_err = train_err = window_err = None
+    serve_err = train_err = None
+    wide_err, window_err = {}, {}
     for i, c in enumerate(kernel_cases()):
         rng = np.random.default_rng(seed + i)
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
                           c["dtype"], c["layout"])
         kw = dict(causal=c["causal"], window=c["window"], kv_len=c["kv_len"])
-        if c["layout"] == "bshd":
+        if c["layout"] in ("bshd", "fused"):
             ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), **kw)
             qs, ks, vs = q, k, v
@@ -405,18 +453,15 @@ def phase_kernels(seed: int) -> tuple[float, float, float, float]:
             ref = attention_ref(q, k, v, **kw)
             qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
         auto_body, bodies = _bodies(qs, ks, vs)
-        if c["D"] > 128:
-            want = "mma" if c["dtype"] == torch.bfloat16 else "simt"
-            check(auto_body == want and "wgmma" not in bodies,
-                  f"kernel case {i}: auto takes {auto_body} of {bodies}, "
-                  f"expected {want} and no wgmma (D > 128)")
-        elif c["dtype"] == torch.bfloat16 and c["D"] % 8 == 0:
-            check(auto_body == "wgmma", f"kernel case {i}: auto takes "
-                  f"{auto_body}, expected wgmma (aligned bf16, D % 8 == 0)")
+        want = _want_body(c["dtype"], c["D"])
+        check(auto_body == want, f"kernel case {i}: auto takes {auto_body} "
+              f"of {bodies}, expected {want}")
+        check(c["dtype"] != torch.bfloat16 or "mma" in bodies,
+              f"kernel case {i}: the mma body does not take it")
         tol = TOL[c["dtype"]]
         for body in ["auto", *bodies]:
             before = dict(flash_attention.launches_by_body)
-            if c["layout"] == "bshd":
+            if c["layout"] in ("bshd", "fused"):
                 out = attention(q, k, v, body=body, **kw).transpose(1, 2)
             else:
                 out = flash_attention(q, k, v, body=body, **kw)
@@ -435,14 +480,15 @@ def phase_kernels(seed: int) -> tuple[float, float, float, float]:
                   f"kernel case {i} body {body}: error {err} >= {tol}")
             if i == 0 and body == "wgmma":
                 serve_err = err
-            if c == dict(WIDE_CASE) and body == "mma":
-                wide_err = err
+            if c == dict(WIDE_CASE) and body in ("wgmma", "mma"):
+                wide_err[body] = err
             if c == TRAIN_CASE and body == "simt":
                 train_err = err
-            if body == "mma" and [c[k] for k in GEMMA_LOCAL] == \
+            if body in ("wgmma", "mma") and [c[k] for k in GEMMA_LOCAL] == \
                     list(GEMMA_LOCAL.values()):
-                window_err = err
-    check(window_err is not None, "no kernel case at GEMMA_LOCAL")
+                window_err[body] = err
+    check(len(window_err) == 2 and len(wide_err) == 2,
+          "no wgmma or mma case at WIDE_CASE or GEMMA_LOCAL")
     return serve_err, wide_err, train_err, window_err
 
 
@@ -684,11 +730,15 @@ def _flash_work(B, H, Hkv, S, D, size, window=0):
         live_pairs
 
 
+WIDE_D = dict(B=1, H=8, Hkv=8, S=1024)    # the D > 256 route, at D = 512
+
+
 def phase_times(seed: int) -> tuple[dict, dict]:
     """Flash attention at the serving shape: the wgmma body (the main
     path's) against its bound, its plain version and the library call, and
     the mma body beside it, all in device time, warm and cold in L2. Then
-    the mma body at WIDE_CASE (D = 256), the same way."""
+    the wgmma body at WIDE_CASE (D = 256) the same way, the mma body beside
+    it; and the mma and simt bodies at D = 512 (slices of 256 columns)."""
     from repro_torch.kernels.flash_attention import attention, attention_ref
     c = SERVE_CASE
     B, H, Hkv, S, D = c["B"], c["H"], c["Hkv"], c["S"], c["D"]
@@ -724,14 +774,34 @@ def phase_times(seed: int) -> tuple[dict, dict]:
     bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
                                                  q.element_size())
     wide, extra = _time_kernel(
-        lambda: attention(q, k, v, causal=True, body="mma"),
+        lambda: attention(q, k, v, causal=True, body="wgmma"),
         lambda: attention_ref(qt, kt, vt, causal=True),
         bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
         library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    mma_ms, mma_cold_ms = _warm_cold_ms(
+        lambda: attention(q, k, v, causal=True, body="mma"), flush)
+    wide.update(mma_ms=mma_ms, mma_cold_l2_ms=mma_cold_ms)
     emit("times", shape=[B, H, Hkv, S, D], dtype="bfloat16", causal=True,
-         body="mma", **extra, live_scores=live_pairs,
+         body="wgmma", **extra, live_scores=live_pairs,
          exp_ms=live_pairs / _mufu_ex2_per_s() * 1e3,
-         mma_over_library=wide["ms"] / wide["library_ms"], **wide)
+         mma_over_wgmma=mma_ms / wide["ms"],
+         wgmma_over_library=wide["ms"] / wide["library_ms"], **wide)
+
+    # D > 256: exact and slow (the scores once a slice of 256 columns)
+    B, H, Hkv, S = WIDE_D.values()
+    for dtype, body in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+        q, k, v = _inputs(np.random.default_rng(seed), B, H, Hkv, S, 512,
+                          dtype, "bshd")
+        bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, 512,
+                                                     q.element_size())
+        ms = _device_ms_per_call(
+            lambda: attention(q, k, v, causal=True, body=body))
+        rate = BF16_FLOP_PER_S if body == "mma" else F32_FLOP_PER_S
+        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / rate) * 1e3
+        emit("times", shape=[B, H, Hkv, S, 512],
+             dtype=str(dtype).replace("torch.", ""), causal=True, body=body,
+             ms=ms, bound_ms=bound_ms, roofline_share=bound_ms / ms,
+             slices=2, l2="warm")
     return row, wide
 
 
@@ -740,10 +810,11 @@ GEMM_NAMES = ("gemm", "nvjet", "cutlass")   # cuBLAS's kernels by name
 
 
 def phase_window_times(seed: int) -> dict:
-    """The mma body at a gemma3-12b local layer's prefill (GEMMA_LOCAL: a
+    """The wgmma body at a gemma3-12b local layer's prefill (GEMMA_LOCAL: a
     prompt of twice the window, so the kernel skips the key tiles before
     it), warm and cold in L2, against the bound of the window's live pairs,
-    its plain version and SDPA given the equivalent boolean mask."""
+    its plain version and SDPA given the equivalent boolean mask; the mma
+    body's times beside it."""
     from repro_torch.kernels.flash_attention import attention, attention_ref
     c = GEMMA_LOCAL
     B, H, Hkv, S, D, W = (c[k] for k in ("B", "H", "Hkv", "S", "D", "window"))
@@ -756,15 +827,21 @@ def phase_window_times(seed: int) -> dict:
     bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
                                                  q.element_size(), window=W)
     row, extra = _time_kernel(
-        lambda: attention(q, k, v, causal=True, window=W, body="mma"),
+        lambda: attention(q, k, v, causal=True, window=W, body="wgmma"),
         lambda: attention_ref(qt, kt, vt, causal=True, window=W),
         bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
         library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")
+    mma_ms, mma_cold_ms = _warm_cold_ms(
+        lambda: attention(q, k, v, causal=True, window=W, body="mma"), flush)
+    row.update(mma_ms=mma_ms, mma_cold_l2_ms=mma_cold_ms)
     emit("window_times", shape=[B, H, Hkv, S, D], dtype="bfloat16",
-         causal=True, window=W, body="mma", **extra, live_scores=live_pairs,
+         causal=True, window=W, body="wgmma", **extra,
+         live_scores=live_pairs,
          live_share=live_pairs / (B * H * S * (S + 1) // 2),
          library_call="SDPA, boolean causal-and-window mask",
-         mma_over_library=row["ms"] / row["library_ms"], **row)
+         mma_over_wgmma=mma_ms / row["ms"],
+         wgmma_over_library=row["ms"] / row["library_ms"], **row)
     return row
 
 
@@ -901,7 +978,7 @@ def _serve_family(seed: int, run: dict) -> int:
     by_body = {b: n for b, n in flash_attention.launches_by_body.items() if n}
     by_window = dict(flash_attention.launches_by_window)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    body = "mma" if cfg.head_dim > 128 else "wgmma"
+    body = "wgmma"        # every family: aligned bf16, D <= 256
     check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
                            dequant=0, dequant_packed=0, bitunpack=0),
           f"{cfg.name}: serving launched {launched}, expected "
@@ -2609,13 +2686,16 @@ def main(argv=None) -> int:
              launches_by_phase={"serve": launches, "train": train["launches"],
                                  **{f"families_{arch}": n for arch, n
                                     in family_launches.items()}},
-             d256=dict(body="mma", shape=[WIDE_CASE[k] for k in "B H Hkv S D"
-                                          .split()],
-                       max_abs_err=wide_err, **wide),
-             d256_window=dict(body="mma", window=GEMMA_LOCAL["window"],
+             d256=dict(body="wgmma", shape=[WIDE_CASE[k] for k in
+                                            "B H Hkv S D".split()],
+                       max_abs_err=wide_err["wgmma"],
+                       mma_max_abs_err=wide_err["mma"], **wide),
+             d256_window=dict(body="wgmma", window=GEMMA_LOCAL["window"],
                               shape=[GEMMA_LOCAL[k] for k in
                                      "B H Hkv S D".split()],
-                              max_abs_err=window_err, **window_row),
+                              max_abs_err=window_err["wgmma"],
+                              mma_max_abs_err=window_err["mma"],
+                              **window_row),
              train=dict(body="simt", dtype="float32",
                         shape=[TRAIN_CASE[k] for k in "B H Hkv S D".split()],
                         launches_per_step=2 * train["n_layers"],

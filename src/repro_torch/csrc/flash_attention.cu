@@ -22,7 +22,7 @@
 //
 // Three bodies, chosen by the caller (kernels/flash_attention/kernel.py):
 //   * flash_fwd_wgmma (bf16; pointers 16-byte aligned, batch/seq/head
-//     strides multiples of 8 elements, D a multiple of 8 up to 128: TMA's
+//     strides multiples of 8 elements, D a multiple of 8 up to 256: TMA's
 //     rules). A block owns 128 query rows, two warpgroups of 64. Bytes: TMA
 //     copies (Q once, K and V through a two-stage ring with a full mbarrier
 //     a stage and tensor), issued by one thread, so no thread spends
@@ -30,26 +30,30 @@
 //     is multiplied; the tensor maps zero-fill past S and D, so ragged
 //     edges need no masked loads; 128-row blocks re-read K/V from L2 half
 //     as often as 64-row ones. No producer warp: its registers would keep
-//     the second block off the SM (measured slower). Products: wgmma
-//     m64n128k16 for S = Q K^T with both operands in 128-byte-swizzled
-//     shared memory, and m64n64k16 for O += P V with P from registers and V
-//     read MN-major through the descriptor's transpose bit (no copy of V^T).
+//     the second block off the SM at D <= 64 (measured slower). Products:
+//     wgmma m64n128k16 (m64n64k16 at D > 128, whose 64-key tiles keep the
+//     score tile, P and a 256-wide O in registers) for S = Q K^T with both
+//     operands in 128-byte-swizzled shared memory, and m64n64k16 a 64-column
+//     box of V for O += P V with P from registers and V read MN-major
+//     through the descriptor's transpose bit (no copy of V^T).
 //     exp: the softmax stays in the exp2 domain with the scale folded into
 //     one FMA a score, masks only the tiles that hold a diagonal, the kv_len
 //     edge or the window edge, and four warpgroups an SM (two blocks at
 //     D <= 64) let one warpgroup's exp2 run under another's products.
 //     Causal q-tiles are issued heaviest first.
-//   * flash_fwd_mma (bf16, any other layout, e.g. D = 100, and every
-//     128 < D <= 256): mma.sync m16n8k16 tensor-core products, one warp per
+//   * flash_fwd_mma (bf16, any layout, e.g. D = 100 or unaligned views, and
+//     every D > 256): mma.sync m16n8k16 tensor-core products, one warp per
 //     16 query rows, loads through registers. D is zero-padded to DP = 64,
 //     128 or 256. At DP = 256 a warp's output accumulator alone takes 128
 //     registers a thread, so its Q fragments are read from shared memory at
 //     each k-step instead of being held (64 registers more would spill).
-//   * flash_fwd_simt (f32, D <= 256): products in f32 FMA, so an f32 call
+//   * flash_fwd_simt (f32, any D): products in f32 FMA, so an f32 call
 //     stays within f32 rounding of the reference (tensor-core TF32 would
-//     not). A lane owns DCH = 4 output dims (D <= 128) or 8 (D <= 256).
-// D > 256 is refused: the reference pads D to any multiple of 128, but no
-// configuration of the repo has a head dim above 256.
+//     not). A lane owns DCH = 4 output dims (D <= 128) or 8 (D > 128).
+// D > 256 (mma and simt): a block a slice of 256 output columns, scoring
+// over the whole of D in chunks of 256 (see n_slices); exact and slow. The
+// reference pads D to any multiple of 128; no configuration of the repo
+// has a head dim above 256.
 // The tensor-core bodies cast P to bf16 before the PV product, as the
 // reference casts probabilities to v.dtype.
 //
@@ -117,37 +121,53 @@ constexpr int S_BQ = 32;                 // query rows per block
 constexpr int S_BK = 64;                 // keys per tile: two per lane
 constexpr int S_WARPS = 4;
 constexpr int S_RPW = S_BQ / S_WARPS;    // query rows per warp
-constexpr int DMAX = 256;               // every body but wgmma
-constexpr int W_DMAX = 128;              // the wgmma body's register budget
+constexpr int CHUNK = 256;  // D > CHUNK: scores over chunks of D, O in slices
+constexpr int W_DMAX = 256;              // the wgmma body's shared memory
+
+// Blocks over the output's columns: one for D <= CHUNK, else one a slice
+// of CHUNK columns of V and O. Each block of a slice scores over the whole
+// of D, restaging Q and K a chunk of CHUNK dims at a time: exact, and it
+// repeats the scores once a slice (no configuration of the repo has
+// D > 256; the reference pads D to any multiple of 128).
+int n_slices(int D) { return D <= CHUNK ? 1 : (D + CHUNK - 1) / CHUNK; }
 
 size_t simt_smem(int D) {
-  // Qs [BQ][D], Kt [D][BK+1] (transposed, padded: conflict-free both ways),
-  // Vs [BK][D], Ps [warps][rows][BK]
+  // Qs [BQ][DS], Kt [DS][BK+1] (transposed, padded: conflict-free both
+  // ways), Vs [BK][DS], Ps [warps][rows][BK]; DS = min(D, CHUNK)
+  D = D < CHUNK ? D : CHUNK;
   return sizeof(float) *
          (size_t)(S_BQ * D + D * (S_BK + 1) + S_BK * D + S_WARPS * S_RPW * S_BK);
 }
 
-// DCH: output dims per lane, so the body takes D <= 32 * DCH.
-template <int DCH>
+// DCH: output dims per lane, so the body takes D <= 32 * DCH a slice. CH:
+// D > CHUNK, in slices (blockIdx.y = slice * H + head).
+template <int DCH, bool CH>
 __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
   extern __shared__ float smem[];
   const int D = a.D;
+  const int DS = CH ? CHUNK : D;           // staged width of Q, K and V
+  const int n_ch = CH ? (D + CHUNK - 1) / CHUNK : 1;
   float* Qs = smem;
-  float* Kt = Qs + S_BQ * D;
-  float* Vs = Kt + D * (S_BK + 1);
-  float* Ps = Vs + S_BK * D;
+  float* Kt = Qs + S_BQ * DS;
+  float* Vs = Kt + DS * (S_BK + 1);
+  float* Ps = Vs + S_BK * DS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * S_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * S_BQ, b = blockIdx.z;
+  const int h = CH ? blockIdx.y % a.H : blockIdx.y;
+  const int d0 = CH ? blockIdx.y / a.H * CHUNK : 0;  // this block's columns
+  const int DV = CH ? min(CHUNK, D - d0) : D;
   const int hk = h / (a.H / a.Hkv);
   const float* q = static_cast<const float*>(a.q) + (size_t)b * a.qsb + (size_t)h * a.qsh;
   const float* k = static_cast<const float*>(a.k) + (size_t)b * a.ksb + (size_t)hk * a.ksh;
-  const float* v = static_cast<const float*>(a.v) + (size_t)b * a.vsb + (size_t)hk * a.vsh;
-  float* o = static_cast<float*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh;
+  const float* v = static_cast<const float*>(a.v) + (size_t)b * a.vsb + (size_t)hk * a.vsh + d0;
+  float* o = static_cast<float*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh + d0;
 
-  for (int i = tid; i < S_BQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, s = q0 + r;
-    Qs[i] = s < a.S ? q[(size_t)s * a.qss + d] * a.scale_log2 : 0.f;
+  if (!CH) {
+    for (int i = tid; i < S_BQ * D; i += blockDim.x) {
+      const int r = i / D, d = i - r * D, s = q0 + r;
+      Qs[i] = s < a.S ? q[(size_t)s * a.qss + d] * a.scale_log2 : 0.f;
+    }
   }
 
   int kv_start, kv_end;
@@ -165,27 +185,64 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
   float* P = Ps + r0 * S_BK;
 
   for (int kt = kv_start; kt < kv_end; kt += S_BK) {
-    __syncthreads();  // Qs written / previous tile consumed
-    for (int i = tid; i < S_BK * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D, s = kt + j;
-      const bool in = s < a.S;
-      Kt[d * (S_BK + 1) + j] = in ? k[(size_t)s * a.kss + d] : 0.f;
-      Vs[i] = in ? v[(size_t)s * a.vss + d] : 0.f;
-    }
-    __syncthreads();
-
     float s0[S_RPW], s1[S_RPW];
+    if constexpr (CH) {  // the scores over chunks of D; V's slice once
 #pragma unroll
-    for (int r = 0; r < S_RPW; ++r) s0[r] = s1[r] = 0.f;
+      for (int r = 0; r < S_RPW; ++r) s0[r] = s1[r] = 0.f;
+      for (int c = 0; c < n_ch; ++c) {
+        __syncthreads();  // previous chunk or tile consumed
+        // chunk c of Q (scaled) and of K (transposed), zero past S and D
+        for (int i = tid; i < S_BQ * CHUNK; i += blockDim.x) {
+          const int r = i / CHUNK, d = i - r * CHUNK, s = q0 + r;
+          const int dd = c * CHUNK + d;
+          Qs[i] = s < a.S && dd < D ? q[(size_t)s * a.qss + dd] * a.scale_log2 : 0.f;
+        }
+        for (int i = tid; i < S_BK * CHUNK; i += blockDim.x) {
+          const int j = i / CHUNK, d = i - j * CHUNK, s = kt + j;
+          const int dd = c * CHUNK + d;
+          Kt[d * (S_BK + 1) + j] = s < a.S && dd < D ? k[(size_t)s * a.kss + dd] : 0.f;
+        }
+        if (c == 0) {
+          for (int i = tid; i < S_BK * CHUNK; i += blockDim.x) {
+            const int j = i / CHUNK, d = i - j * CHUNK, s = kt + j;
+            Vs[i] = s < a.S && d < DV ? v[(size_t)s * a.vss + d] : 0.f;
+          }
+        }
+        __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float k0 = Kt[d * (S_BK + 1) + lane];
-      const float k1 = Kt[d * (S_BK + 1) + lane + 32];
+        for (int d = 0; d < CHUNK; ++d) {
+          const float k0 = Kt[d * (S_BK + 1) + lane];
+          const float k1 = Kt[d * (S_BK + 1) + lane + 32];
 #pragma unroll
-      for (int r = 0; r < S_RPW; ++r) {
-        const float qd = Qs[(r0 + r) * D + d];
-        s0[r] = fmaf(qd, k0, s0[r]);
-        s1[r] = fmaf(qd, k1, s1[r]);
+          for (int r = 0; r < S_RPW; ++r) {
+            const float qd = Qs[(r0 + r) * CHUNK + d];
+            s0[r] = fmaf(qd, k0, s0[r]);
+            s1[r] = fmaf(qd, k1, s1[r]);
+          }
+        }
+      }
+    } else {
+      __syncthreads();  // Qs written / previous tile consumed
+      for (int i = tid; i < S_BK * D; i += blockDim.x) {
+        const int j = i / D, d = i - j * D, s = kt + j;
+        const bool in = s < a.S;
+        Kt[d * (S_BK + 1) + j] = in ? k[(size_t)s * a.kss + d] : 0.f;
+        Vs[i] = in ? v[(size_t)s * a.vss + d] : 0.f;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int r = 0; r < S_RPW; ++r) s0[r] = s1[r] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float k0 = Kt[d * (S_BK + 1) + lane];
+        const float k1 = Kt[d * (S_BK + 1) + lane + 32];
+#pragma unroll
+        for (int r = 0; r < S_RPW; ++r) {
+          const float qd = Qs[(r0 + r) * D + d];
+          s0[r] = fmaf(qd, k0, s0[r]);
+          s1[r] = fmaf(qd, k1, s1[r]);
+        }
       }
     }
 
@@ -213,7 +270,7 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
 #pragma unroll
       for (int c = 0; c < DCH; ++c) {
         const int d = lane + 32 * c;
-        vv[c] = d < D ? Vs[j * D + d] : 0.f;
+        vv[c] = d < DV ? Vs[j * DS + d] : 0.f;  // DS = DV = D unless CH
       }
 #pragma unroll
       for (int r = 0; r < S_RPW; ++r) {
@@ -233,23 +290,23 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) o[(size_t)qi * a.oss + d] = acc[r][c] * inv;
+      if (d < DV) o[(size_t)qi * a.oss + d] = acc[r][c] * inv;
     }
   }
 }
 
 // Shared memory above 48 KB needs the attribute, set on the current device
 // before each launch (cheap, and right for whichever device is current).
-// At D = 256 a block takes 169 KB (one block an SM).
-template <int DCH>
+// At D >= 256 a block takes 169 KB (one block an SM).
+template <int DCH, bool CH>
 cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
   const size_t smem = simt_smem(a.D);
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_simt<DCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_simt<DCH, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + S_BQ - 1) / S_BQ, a.H, a.B);
-  flash_fwd_simt<DCH><<<grid, S_WARPS * 32, smem, stream>>>(a);
+  const dim3 grid((a.S + S_BQ - 1) / S_BQ, a.H * n_slices(a.D), a.B);
+  flash_fwd_simt<DCH, CH><<<grid, S_WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -328,11 +385,14 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int DP>
+// CH: D > CHUNK at DP = CHUNK, in slices of the output's columns
+// (blockIdx.y = slice * H + head), Q and K staged a chunk of D at a time.
+template <int DP, bool CH>
 __global__ void __launch_bounds__(M_WARPS * 32)
     flash_fwd_mma(Args a, int vec8) {
   extern __shared__ __align__(16) unsigned char mma_smem_raw[];
   constexpr int LD = DP + 8, KS = DP / 16, DT = DP / 8, NT = M_BK / 8;
+  static_assert(!CH || DP == CHUNK, "chunks of D are CHUNK wide");
   // Q's fragments live in registers up to DP = 128, else in shared memory
   constexpr bool QREG = DP <= 128;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem_raw);
@@ -341,16 +401,22 @@ __global__ void __launch_bounds__(M_WARPS * 32)
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
-  const int q0 = blockIdx.x * M_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * M_BQ, b = blockIdx.z;
+  const int h = CH ? blockIdx.y % a.H : blockIdx.y;
+  const int d0 = CH ? blockIdx.y / a.H * CHUNK : 0;  // this block's columns
+  const int DV = CH ? min(CHUNK, a.D - d0) : a.D;
+  const int n_ch = CH ? (a.D + CHUNK - 1) / CHUNK : 1;
   const int hk = h / (a.H / a.Hkv);
   using bf16 = __nv_bfloat16;
   const bf16* q = static_cast<const bf16*>(a.q) + (size_t)b * a.qsb + (size_t)h * a.qsh;
   const bf16* k = static_cast<const bf16*>(a.k) + (size_t)b * a.ksb + (size_t)hk * a.ksh;
-  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)b * a.vsb + (size_t)hk * a.vsh;
-  bf16* o = static_cast<bf16*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh;
+  const bf16* v = static_cast<const bf16*>(a.v) + (size_t)b * a.vsb + (size_t)hk * a.vsh + d0;
+  bf16* o = static_cast<bf16*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh + d0;
 
-  load_tile<DP>(Qs, q, a.qss, q0, M_BQ, a.S, a.D, vec8);
-  __syncthreads();
+  if (!CH) {
+    load_tile<DP>(Qs, q, a.qss, q0, M_BQ, a.S, a.D, vec8);
+    __syncthreads();
+  }
 
   // This warp's 16 query rows as A fragments, kept in registers (QREG).
   const int qr = warp * 16 + g;
@@ -373,32 +439,49 @@ __global__ void __launch_bounds__(M_WARPS * 32)
     oacc[dt][0] = oacc[dt][1] = oacc[dt][2] = oacc[dt][3] = 0.f;
 
   for (int kt = kv_start; kt < kv_end; kt += M_BK) {
-    __syncthreads();  // previous tile consumed
-    load_tile<DP>(Ks, k, a.kss, kt, M_BK, a.S, a.D, vec8);
-    load_tile<DP>(Vs, v, a.vss, kt, M_BK, a.S, a.D, vec8);
-    __syncthreads();
-
     // S = Q K^T for 16 rows x 64 keys: NT tiles of 16 x 8, a k-step at a
     // time (Q's fragment of the step read once).
     float sacc[NT][4];
+    auto qk = [&]() {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qs[4];
+        if constexpr (QREG) {
+          qs[0] = qf[ks][0]; qs[1] = qf[ks][1];
+          qs[2] = qf[ks][2]; qs[3] = qf[ks][3];
+        } else {
+          q_frag<LD>(qs, Qs, qr, ks, t);
+        }
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qs[4];
-      if constexpr (QREG) {
-        qs[0] = qf[ks][0]; qs[1] = qf[ks][1];
-        qs[2] = qf[ks][2]; qs[3] = qf[ks][3];
-      } else {
-        q_frag<LD>(qs, Qs, qr, ks, t);
+        for (int nt = 0; nt < NT; ++nt) {
+          const bf16* p = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
+          mma_bf16(sacc[nt], qs, *reinterpret_cast<const uint32_t*>(p),
+                   *reinterpret_cast<const uint32_t*>(p + 8));
+        }
       }
+    };
+    if constexpr (CH) {  // over chunks of D; V's slice once
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* p = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_bf16(sacc[nt], qs, *reinterpret_cast<const uint32_t*>(p),
-                 *reinterpret_cast<const uint32_t*>(p + 8));
+      for (int nt = 0; nt < NT; ++nt)
+        sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
+      for (int c = 0; c < n_ch; ++c) {
+        const int dims = min(CHUNK, a.D - c * CHUNK);
+        __syncthreads();  // previous chunk or tile consumed
+        load_tile<DP>(Qs, q + c * CHUNK, a.qss, q0, M_BQ, a.S, dims, vec8);
+        load_tile<DP>(Ks, k + c * CHUNK, a.kss, kt, M_BK, a.S, dims, vec8);
+        if (c == 0) load_tile<DP>(Vs, v, a.vss, kt, M_BK, a.S, DV, vec8);
+        __syncthreads();
+        qk();
       }
+    } else {
+      __syncthreads();  // previous tile consumed
+      load_tile<DP>(Ks, k, a.kss, kt, M_BK, a.S, a.D, vec8);
+      load_tile<DP>(Vs, v, a.vss, kt, M_BK, a.S, a.D, vec8);
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0.f;
+      qk();
     }
 
     float mx[2] = {-INFINITY, -INFINITY};
@@ -466,24 +549,24 @@ __global__ void __launch_bounds__(M_WARPS * 32)
     for (int dt = 0; dt < DT; ++dt) {
       const int d = dt * 8 + 2 * t;
       const float v0 = oacc[dt][2 * r] * inv, v1 = oacc[dt][2 * r + 1] * inv;
-      if (vec8 && d + 1 < a.D) {
+      if (vec8 && d + 1 < DV) {
         *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(v0, v1);
       } else {
-        if (d < a.D) orow[d] = __float2bfloat16(v0);
-        if (d + 1 < a.D) orow[d + 1] = __float2bfloat16(v1);
+        if (d < DV) orow[d] = __float2bfloat16(v0);
+        if (d + 1 < DV) orow[d + 1] = __float2bfloat16(v1);
       }
     }
   }
 }
 
-template <int DP>
+template <int DP, bool CH = false>
 cudaError_t launch_mma(const Args& a, int vec8, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_mma<DP, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)mma_smem<DP>());
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + M_BQ - 1) / M_BQ, a.H, a.B);
-  flash_fwd_mma<DP><<<grid, M_WARPS * 32, mma_smem<DP>(), stream>>>(a, vec8);
+  const dim3 grid((a.S + M_BQ - 1) / M_BQ, a.H * n_slices(a.D), a.B);
+  flash_fwd_mma<DP, CH><<<grid, M_WARPS * 32, mma_smem<DP>(), stream>>>(a, vec8);
   return cudaGetLastError();
 }
 
@@ -491,29 +574,32 @@ cudaError_t launch_mma(const Args& a, int vec8, cudaStream_t stream) {
 // Hopper body: TMA ring with mbarriers, wgmma (bf16)
 // ---------------------------------------------------------------------------
 
-constexpr int W_BK = 128;        // keys per K/V tile
 constexpr int W_STAGES = 2;      // depth of the K/V ring
-constexpr int W_KVBOX = W_BK * 128;  // bytes of a box of K or V: 64 bf16 a row
 
 // One configuration of the body. NB: 64-column boxes of a row, 1 for
-// D <= 64, 2 for D <= 128. NC: warpgroups of 64 query rows each; a block
-// owns 64 NC query rows of one (batch, head), and its warpgroups share each
-// K/V tile. Two blocks share an SM at D <= 64 (80 KB of shared memory and
-// at most 128 registers a thread each), so one block's loads and epilogue
-// run under the other's products; one block fills it at D = 128 (160 KB).
+// D <= 64, 2 for D <= 128, 4 for D <= 256. NC: warpgroups of 64 query rows
+// each; a block owns 64 NC query rows of one (batch, head), and its
+// warpgroups share each K/V tile. Two blocks share an SM at D <= 64 (80 KB
+// of shared memory and at most 128 registers a thread each), so one
+// block's loads and epilogue run under the other's products; one block
+// fills it at D = 128 (160 KB) and at D = 256 (193 KB). bk: keys a K/V
+// tile, 128, or 64 at NB = 4, where the O accumulator (4 x 32 f32 a
+// thread) leaves room for a 64-key score tile (32) and its P (16) only.
 template <int NB, int NC>
 struct WCfg {
   static constexpr int bq = 64 * NC;                 // query rows per block
+  static constexpr int bk = NB == 4 ? 64 : 128;      // keys per K/V tile
   static constexpr int threads = NC * 128;
   static constexpr int min_blocks = NB == 1 ? 2 : 1; // resident per SM
   static constexpr int qbox = bq * 128;              // bytes of a box of Q
+  static constexpr int kvbox = bk * 128;             // of K or V: 64 dims a row
   // Shared memory from a 1024-byte-aligned base (the 128-byte swizzle
   // repeats every 8 rows of 128 bytes): Q [NB boxes], K [stages][NB],
   // V [stages][NB], then the barriers.
   static constexpr int q = 0;
   static constexpr int k = q + NB * qbox;
-  static constexpr int v = k + W_STAGES * NB * W_KVBOX;
-  static constexpr int bar = v + W_STAGES * NB * W_KVBOX;
+  static constexpr int v = k + W_STAGES * NB * kvbox;
+  static constexpr int bar = v + W_STAGES * NB * kvbox;
   static constexpr int n_bar = 1 + 2 * W_STAGES;  // q; k full, v full
   static constexpr int smem = bar + 8 * n_bar + 1024;  // + alignment slack
 };
@@ -633,6 +719,26 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// S[64 x 64] (+)= Q[64 x 16] K[64 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // O[64 x 64] += P[64 x 16] V[16 x 64]: P as bf16 A fragments in registers,
 // V MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0,
@@ -723,6 +829,7 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Args a) {
   using C = WCfg<NB, NC>;
+  constexpr int BK = C::bk, HALVES = BK / 64;  // 64-key halves of a tile
   extern __shared__ __align__(1024) unsigned char w_smem_raw[];
   const uint32_t raw = smem_u32(w_smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
@@ -737,8 +844,8 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::bq;
   const int hk = h / (a.H / a.Hkv);
   int kv_start, kv_end;
-  kv_range(a, q0, C::bq, W_BK, &kv_start, &kv_end);
-  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + W_BK - 1) / W_BK : 0;
+  kv_range(a, q0, C::bq, BK, &kv_start, &kv_end);
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + BK - 1) / BK : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -753,15 +860,15 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
   __syncthreads();
 
   auto load_kv = [&](int it) {
-    const int st = it % W_STAGES, kt = kv_start + it * W_BK;
-    mbar_expect_tx(k_full(st), NB * W_KVBOX);
+    const int st = it % W_STAGES, kt = kv_start + it * BK;
+    mbar_expect_tx(k_full(st), NB * C::kvbox);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
-      tma_load(sK + (st * NB + j) * W_KVBOX, &tk, k_full(st), 64 * j, kt, hk, b);
-    mbar_expect_tx(v_full(st), NB * W_KVBOX);
+      tma_load(sK + (st * NB + j) * C::kvbox, &tk, k_full(st), 64 * j, kt, hk, b);
+    mbar_expect_tx(v_full(st), NB * C::kvbox);
 #pragma unroll
     for (int j = 0; j < NB; ++j)
-      tma_load(sV + (st * NB + j) * W_KVBOX, &tv, v_full(st), 64 * j, kt, hk, b);
+      tma_load(sV + (st * NB + j) * C::kvbox, &tv, v_full(st), 64 * j, kt, hk, b);
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, NB * C::qbox);
@@ -780,10 +887,10 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
   const int row0 = wr0 + 16 * wq + g;      // this thread's rows: row0, row0 + 8
   const uint32_t sQw = sQ + 64 * 128 * wg;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];  // row0, row0 + 8
-  float s[64], o[NB][32];
-  uint32_t pa[32];  // P as the bf16 A fragments of the PV product
+  float s[BK / 2], o[NB][32];
+  uint32_t pa[BK / 4];  // P as the bf16 A fragments of the PV product
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -791,7 +898,7 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
 
   mbar_wait(bar_q, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % W_STAGES, kt = kv_start + it * W_BK;
+    const int st = it % W_STAGES, kt = kv_start + it * BK;
     const uint32_t par = (it / W_STAGES) & 1;
     mbar_wait(k_full(st), par);
     wg_pin(s);
@@ -801,22 +908,27 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
         wgmma_qk(s, desc_kmajor(sQw + j * C::qbox + 32 * ks),
-                 desc_kmajor(sK + (st * NB + j) * W_KVBOX + 32 * ks),
+                 desc_kmajor(sK + (st * NB + j) * C::kvbox + 32 * ks),
                  (j | ks) != 0);
     wg_commit();
     wg_wait();
     wg_pin(s);
-    // Masks only the halves of the tile (keys kt .. kt + 63, kt + 64 ..
-    // kt + 127: elements 0-31, 32-63) where this warpgroup's rows meet the
-    // diagonal, the kv_len (or S) edge, or the window's far edge. Live keys
-    // of row r are kt + 2 t + c for c in [lo[r], hi[r]], c the element's
-    // column offset (a constant of the unrolled loop).
+    // Masks only the 64-key halves of the tile (half x: keys kt + 64 x ..
+    // kt + 64 x + 63, elements 32 x .. 32 x + 31) where this warpgroup's
+    // rows meet the diagonal, the kv_len (or S) edge, or the window's far
+    // edge. Live keys of row r are kt + 2 t + c for c in [lo[r], hi[r]], c
+    // the element's column offset (a constant of the unrolled loop).
     auto edge_at = [&](int k) {
       return k + 64 > a.kv_lim || (a.causal && k + 63 > wr0) ||
              (a.window > 0 && wr0 + 63 - k >= a.window);
     };
-    const bool edge0 = edge_at(kt), edge1 = edge_at(kt + 64);
-    if (edge0 || edge1) {
+    bool edge[HALVES], any_edge = false;
+#pragma unroll
+    for (int x = 0; x < HALVES; ++x) {
+      edge[x] = edge_at(kt + 64 * x);
+      any_edge = any_edge || edge[x];
+    }
+    if (any_edge) {
       int lo[2], hi[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -829,29 +941,25 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
         if (c > hi[r] || (window && c < lo[r])) s[i] = -INFINITY;
       };
       if (a.window > 0) {
-        if (edge0) {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) mask(i, true);
-        }
-        if (edge1) {
+        for (int x = 0; x < HALVES; ++x)
+          if (edge[x]) {
 #pragma unroll
-          for (int i = 32; i < 64; ++i) mask(i, true);
-        }
+            for (int i = 32 * x; i < 32 * x + 32; ++i) mask(i, true);
+          }
       } else {
-        if (edge0) {
 #pragma unroll
-          for (int i = 0; i < 32; ++i) mask(i, false);
-        }
-        if (edge1) {
+        for (int x = 0; x < HALVES; ++x)
+          if (edge[x]) {
 #pragma unroll
-          for (int i = 32; i < 64; ++i) mask(i, false);
-        }
+            for (int i = 32 * x; i < 32 * x + 32; ++i) mask(i, false);
+          }
       }
     }
     // Online softmax in the exp2 domain; P rounded to bf16 for the product.
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 64; i += 4) {
+    for (int i = 0; i < BK / 2; i += 4) {
       mx[0] = fmaxf(mx[0], fmaxf(s[i], s[i + 1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[i + 2], s[i + 3]));
     }
@@ -867,7 +975,7 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < BK / 2; i += 2) {
       const int r = (i >> 1) & 1;
       const float p0 = ex2(fmaf(s[i], a.scale_log2, -mu[r]));
       const float p1 = ex2(fmaf(s[i + 1], a.scale_log2, -mu[r]));
@@ -884,12 +992,12 @@ __global__ void __launch_bounds__(WCfg<NB, NC>::threads,
     for (int j = 0; j < NB; ++j) wg_pin(o[j]);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < W_BK / 16; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < NB; ++j)
         wgmma_pv(o[j], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                  pa[4 * kk + 3],
-                 desc_mnmajor(sV + (st * NB + j) * W_KVBOX + 16 * 128 * kk));
+                 desc_mnmajor(sV + (st * NB + j) * C::kvbox + 16 * 128 * kk));
     wg_commit();
     wg_wait();
 #pragma unroll
@@ -939,8 +1047,8 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   using C = WCfg<NB, NC>;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, a.q, C::bq, a.D, a.S, a.H, a.B, a.qss, a.qsh, a.qsb) ||
-      !encode_map(&tk, a.k, W_BK, a.D, a.S, a.Hkv, a.B, a.kss, a.ksh, a.ksb) ||
-      !encode_map(&tv, a.v, W_BK, a.D, a.S, a.Hkv, a.B, a.vss, a.vsh, a.vsb))
+      !encode_map(&tk, a.k, C::bk, a.D, a.S, a.Hkv, a.B, a.kss, a.ksh, a.ksb) ||
+      !encode_map(&tv, a.v, C::bk, a.D, a.S, a.Hkv, a.B, a.vss, a.vsh, a.vsb))
     return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma<NB, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -964,7 +1072,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int vsh, int osb, int oss, int osh,
                                    int causal, int window, int kv_len, int body,
                                    void* stream) {
-  if (B <= 0 || S <= 0 || D <= 0 || D > DMAX || Hkv <= 0 || H % Hkv != 0 ||
+  if (B <= 0 || S <= 0 || D <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       kv_len < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -980,8 +1088,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (body == BODY_SIMT)
     return dtype != 0 ? (int)cudaErrorInvalidValue
-                      : (int)(D <= 128 ? launch_simt<4>(a, st)
-                                       : launch_simt<8>(a, st));
+                      : (int)(D <= 128   ? launch_simt<4, false>(a, st)
+                              : D <= 256 ? launch_simt<8, false>(a, st)
+                                         : launch_simt<8, true>(a, st));
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int strides[] = {qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, osb, oss, osh};
@@ -992,12 +1101,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     for (int s : strides) vec8 = vec8 && s % 8 == 0;
     return (int)(D <= 64    ? launch_mma<64>(a, vec8, st)
                  : D <= 128 ? launch_mma<128>(a, vec8, st)
-                            : launch_mma<256>(a, vec8, st));
+                 : D <= 256 ? launch_mma<256>(a, vec8, st)
+                            : launch_mma<256, true>(a, vec8, st));
   }
   if (body != BODY_WGMMA) return (int)cudaErrorInvalidValue;
   // TMA's rules: 16-byte-aligned bases and byte strides, whole 16-byte rows
   bool takes = aligned && D % 8 == 0 && D <= W_DMAX;
   for (int s : strides) takes = takes && s > 0 && s % 8 == 0;
   if (!takes) return (int)cudaErrorInvalidValue;
-  return (int)(D <= 64 ? launch_wgmma<1, 2>(a, st) : launch_wgmma<2, 2>(a, st));
+  return (int)(D <= 64    ? launch_wgmma<1, 2>(a, st)
+               : D <= 128 ? launch_wgmma<2, 2>(a, st)
+                          : launch_wgmma<4, 2>(a, st));
 }

@@ -6,11 +6,12 @@ synchronise; a refused launch raises here, a fault during the run shows at
 the next synchronisation.
 
 The source has three bodies. ``wgmma`` (TMA copies, wgmma products) takes
-the bf16 calls with D <= 128 that meet TMA's rules; ``mma`` (mma.sync) every
-bf16 call; ``simt`` (f32 FMA) the f32 calls. Every body takes D <= 256
-(``D_MAX``) but ``wgmma``, whose register budget has no room for a wider
-accumulator (``WGMMA_D_MAX``). ``body="auto"`` takes the first of these
-that takes the call; nothing falls back from one body to another.
+the bf16 calls with D <= 256 (``WGMMA_D_MAX``: its shared memory and
+registers hold no wider row) that meet TMA's rules; ``mma`` (mma.sync) every
+bf16 call; ``simt`` (f32 FMA) every f32 call. ``mma`` and ``simt`` take any
+D > 0: past 256 a block computes a slice of 256 output columns, scoring over
+the whole of D. ``body="auto"`` takes the first of these that takes the
+call; nothing falls back from one body to another.
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = {"simt": 0, "mma": 1, "wgmma": 2}   # the C entry point's codes
-D_MAX = 256          # csrc/flash_attention.cu DMAX
-WGMMA_D_MAX = 128    # csrc/flash_attention.cu W_DMAX
+WGMMA_D_MAX = 256    # csrc/flash_attention.cu W_DMAX
 _INT_MAX = 2**31 - 1
 
 
@@ -42,10 +42,10 @@ def takes(body: str, dtype: torch.dtype, D: int, strides, ptrs) -> bool:
     head strides (elements) of q, k, v and out; ``ptrs``: their addresses.
     ``wgmma`` needs TMA's rules: bf16, 16-byte-aligned addresses, strides
     that are positive multiples of 8 elements (16 bytes), D a multiple of 8
-    up to ``WGMMA_D_MAX``. The others take D up to ``D_MAX``."""
+    up to ``WGMMA_D_MAX``. The others take any D > 0."""
     if body not in BODIES:
         raise ValueError(f"unknown body {body!r}: one of {list(BODIES)}")
-    if not 0 < D <= D_MAX:
+    if D <= 0:
         return False
     if body == "simt":
         return dtype == torch.float32
@@ -59,12 +59,12 @@ def takes(body: str, dtype: torch.dtype, D: int, strides, ptrs) -> bool:
 
 def select_body(dtype: torch.dtype, D: int, strides, ptrs) -> str:
     """The body ``"auto"`` launches: wgmma where it takes the call, else
-    mma for bf16, simt for f32 (so mma or simt for 128 < D <= 256)."""
+    mma for bf16, simt for f32 (so mma or simt for D > 256)."""
     for body in ("wgmma", "mma", "simt"):
         if takes(body, dtype, D, strides, ptrs):
             return body
     raise ValueError(f"no body takes dtype {dtype} with D={D} (the kernel "
-                     f"takes 0 < D <= {D_MAX})")
+                     f"takes D > 0)")
 
 
 def flash_attention_fwd(q, k, v, out, *, causal: bool, window: int,
@@ -82,8 +82,8 @@ def flash_attention_fwd(q, k, v, out, *, causal: bool, window: int,
     if k.shape != (B, S, Hkv, D) or v.shape != k.shape or out.shape != q.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} out {tuple(out.shape)}")
-    if not 0 < D <= D_MAX or H % Hkv != 0 or S == 0 or B == 0:
-        raise ValueError(f"need 0 < D <= {D_MAX}, H % Hkv == 0, S, B > 0; "
+    if D <= 0 or H % Hkv != 0 or S == 0 or B == 0:
+        raise ValueError(f"need D > 0, H % Hkv == 0, S, B > 0; "
                          f"got D={D} H={H} Hkv={Hkv} S={S} B={B}")
     strides = []
     for x in (q, k, v, out):

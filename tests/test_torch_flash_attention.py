@@ -163,11 +163,21 @@ def _bshd_strides(B, S, H, Hkv, D):
      _ALIGNED[:3] + [_ALIGNED[3] + 8], "mma"),
     (torch.float32, 64, _bshd_strides(8, 512, 32, 8, 64), _ALIGNED, "simt"),
     (torch.float32, 100, _bshd_strides(2, 256, 8, 2, 100), _ALIGNED, "simt"),
-    # 128 < D <= 256: wgmma refuses, mma takes bf16 and simt f32
-    (torch.bfloat16, 192, _bshd_strides(2, 256, 8, 2, 192), _ALIGNED, "mma"),
-    (torch.bfloat16, 200, _bshd_strides(2, 256, 8, 2, 200), _ALIGNED, "mma"),
-    (torch.bfloat16, 256, _bshd_strides(2, 1024, 16, 8, 256), _ALIGNED, "mma"),
-    (torch.bfloat16, 256, _bshd_strides(2, 1024, 16, 1, 256), _ALIGNED, "mma"),
+    # 128 < D <= 256: wgmma takes aligned bf16 with D % 8 == 0, mma the
+    # other bf16 calls, simt f32
+    (torch.bfloat16, 192, _bshd_strides(2, 256, 8, 2, 192), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 200, _bshd_strides(2, 256, 8, 2, 200), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 256, _bshd_strides(2, 1024, 16, 8, 256), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 256, _bshd_strides(2, 1024, 16, 1, 256), _ALIGNED, "wgmma"),
+    (torch.bfloat16, 196, _bshd_strides(2, 256, 8, 2, 196), _ALIGNED, "mma"),
+    (torch.bfloat16, 256, _bshd_strides(1, 64, 2, 2, 256),
+     _ALIGNED[:3] + [_ALIGNED[3] + 8], "mma"),
+    (torch.bfloat16, 256, [256 * 64 * 12, 256 * 12 + 4, 256] * 4, _ALIGNED,
+     "mma"),
+    # D > 256: mma for bf16 (wgmma stops at 256), simt f32
+    (torch.bfloat16, 264, _bshd_strides(1, 64, 2, 2, 264), _ALIGNED, "mma"),
+    (torch.bfloat16, 512, _bshd_strides(1, 64, 2, 2, 512), _ALIGNED, "mma"),
+    (torch.float32, 320, _bshd_strides(1, 64, 2, 2, 320), _ALIGNED, "simt"),
     (torch.float32, 192, _bshd_strides(2, 256, 8, 2, 192), _ALIGNED, "simt"),
     (torch.float32, 200, _bshd_strides(2, 256, 8, 2, 200), _ALIGNED, "simt"),
     (torch.float32, 256, _bshd_strides(2, 1024, 16, 8, 256), _ALIGNED, "simt"),
@@ -179,22 +189,67 @@ def test_auto_body_choice(dtype, D, strides, ptrs, want):
     # mma takes every bf16 call, simt every f32 call, and nothing else
     assert takes("mma", dtype, D, strides, ptrs) == (dtype == torch.bfloat16)
     assert takes("simt", dtype, D, strides, ptrs) == (dtype == torch.float32)
-    # the wgmma body's register budget stops at D = 128
-    if D > 128:
+    # the wgmma body's shared memory and registers stop at D = 256
+    if D > 256:
         assert not takes("wgmma", dtype, D, strides, ptrs)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [0, 257, 512])
+@pytest.mark.parametrize("D", [0, 257, 320, 512])
 def test_head_dim_past_the_limit_raises(dtype, D):
-    """No body takes D > 256 (nor D = 0), and the error names the limit."""
-    from repro_torch.kernels.flash_attention.kernel import (BODIES, D_MAX,
+    """No limit past D = 256 is left: D = 0 raises, naming D > 0, and every
+    D past 256 takes mma (bf16) or simt (f32), never wgmma."""
+    from repro_torch.kernels.flash_attention.kernel import (BODIES,
+                                                            WGMMA_D_MAX,
                                                             select_body, takes)
-    assert D_MAX == 256
+    assert WGMMA_D_MAX == 256
     strides = _bshd_strides(1, 64, 2, 2, max(D, 1))
-    assert not any(takes(b, dtype, D, strides, _ALIGNED) for b in BODIES)
-    with pytest.raises(ValueError, match="D <= 256"):
-        select_body(dtype, D, strides, _ALIGNED)
+    if D == 0:
+        assert not any(takes(b, dtype, D, strides, _ALIGNED) for b in BODIES)
+        with pytest.raises(ValueError, match="D > 0"):
+            select_body(dtype, D, strides, _ALIGNED)
+        return
+    want = "mma" if dtype == torch.bfloat16 else "simt"
+    assert select_body(dtype, D, strides, _ALIGNED) == want
+    assert [b for b in BODIES if takes(b, dtype, D, strides, _ALIGNED)] \
+        == [want]
+
+
+@pytest.mark.parametrize("H,Hkv,S,causal,window,kv_len", [
+    (2, 2, 160, True, 0, None),       # causal
+    (2, 2, 192, True, 64, None),      # a window
+    (4, 2, 128, True, 0, None),       # GQA, 2 query heads a kv head
+    (4, 1, 96, False, 0, 70),         # MQA, kv_len < S, not causal
+])
+def test_head_dim_past_256_matches_pallas_kernel(H, Hkv, S, causal, window,
+                                                 kv_len):
+    """D = 320 (the reference pads it to 384): the port's plain version
+    against the Pallas kernel in interpret mode, with K/V repeated for
+    the reference's MHA layout, and through the model's entry point."""
+    D = 320
+    q, k, v = _qkv(9, 1, H, Hkv, S, D)
+    G = H // Hkv
+    kr, vr = (np.repeat(x, G, axis=1) for x in (k, v))
+    if kv_len is None:
+        ref = np.asarray(jax_flash_attention(
+            jnp.asarray(q), jnp.asarray(kr), jnp.asarray(vr), causal=causal,
+            window=window, interpret=True))
+    else:
+        # the Pallas kernel itself: S to 128 and D to 384 by zeros, as the
+        # reference's wrapper pads them, with the real D for the scale
+        pad = ((0, 0), (0, -S % 128), (0, -D % 128))
+        ref = np.asarray(flash_attention_pallas(
+            *(jnp.pad(jnp.asarray(x[0]), pad) for x in (q, kr, vr)),
+            causal=causal, kv_len=kv_len, d_real=D,
+            interpret=True))[None, :, :S, :D]
+    tq, tk, tv = _t(q, k, v)
+    plain = attention_ref(tq, tk, tv, causal=causal, window=window,
+                          kv_len=kv_len).numpy()
+    out = flash_attention(tq, tk, tv, causal=causal, window=window,
+                          kv_len=kv_len, device="cpu").numpy()
+    assert plain.shape == (1, H, S, D)
+    assert np.abs(plain - ref).max() < TOL
+    assert np.abs(out - ref).max() < TOL
 
 
 def test_model_layout_takes_wgmma():

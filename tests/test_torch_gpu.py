@@ -155,7 +155,7 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch,head_dim,body", [
-    ("gemma3_12b", 256, "mma"),         # local:swiglu x 2 + global, D = 256
+    ("gemma3_12b", 256, "wgmma"),       # local:swiglu x 2 + global, D = 256
     ("mixtral_8x22b", 128, "wgmma"),    # window:moe, D = 128
 ])
 def test_windowed_model_prefill_matches_plain(cuda, arch, head_dim, body):
@@ -513,6 +513,10 @@ def _bshd(rng, B, S, H, Hkv, D, layout, device):
     (2, 4, 4, 256, 32, False, 0, None, "bshd"),      # D = 32
     (2, 4, 2, 128, 64, True, 0, None, "fused"),      # the model's views
     (1, 8, 2, 96, 96, True, 0, None, "fused"),
+    (2, 16, 8, 512, 256, True, 0, None, "fused"),    # gemma3-12b's prefill
+    (2, 16, 8, 640, 256, True, 256, None, "fused"),  # its local layers
+    (1, 4, 1, 200, 256, True, 0, 150, "bhsd"),       # D = 256, kv_len, MQA
+    (2, 4, 4, 129, 192, False, 0, None, "bshd"),     # D = 192
 ])
 def test_wgmma_body_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
                                   kv_len, layout):
@@ -531,6 +535,8 @@ def test_wgmma_body_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 100, "mma"), (torch.float32, 64, "simt"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 196, "mma"),
+    (torch.bfloat16, 320, "mma"), (torch.float32, 512, "simt"),
 ])
 def test_auto_takes_the_body_the_rule_gives(cuda, dtype, D, want):
     rng = np.random.default_rng(D)
@@ -549,7 +555,8 @@ def test_auto_takes_the_body_the_rule_gives(cuda, dtype, D, want):
 
 
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma"),
-                                        (torch.float32, "simt")])
+                                        (torch.float32, "simt"),
+                                        (torch.bfloat16, "wgmma")])
 @pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,kv_len,layout", [
     (2, 16, 8, 256, 256, True, 0, None, "bshd"),     # gemma3-12b's heads
     (1, 4, 1, 200, 256, True, 0, None, "bhsd"),      # MQA, ragged S
@@ -560,8 +567,61 @@ def test_auto_takes_the_body_the_rule_gives(cuda, dtype, D, want):
 ])
 def test_wide_heads_match_plain(cuda, dtype, body, B, H, Hkv, S, D, causal,
                                 window, kv_len, layout):
-    """128 < D <= 256 through the mma (bf16) and simt (f32) bodies, and
-    "auto" takes the same body."""
+    """128 < D <= 256 through the wgmma and mma (bf16) and simt (f32)
+    bodies, and "auto" takes wgmma (bf16; every case is aligned, D % 8 ==
+    0) or simt (f32)."""
+    q, k, v = (x.to(dtype) for x in _bshd(np.random.default_rng(S + D), B, S,
+                                          H, Hkv, D, layout, cuda))
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), **kw).transpose(1, 2)
+    auto = "wgmma" if dtype == torch.bfloat16 else "simt"
+    for asked in (body, "auto"):
+        before = dict(flash_attention.launches_by_body)
+        out = attention(q, k, v, body=asked, **kw)
+        torch.cuda.synchronize()
+        ran = {b: c - before[b]
+               for b, c in flash_attention.launches_by_body.items()}
+        want = auto if asked == "auto" else body
+        assert ran == {b: int(b == want) for b in ran}
+        assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+def test_a_body_that_cannot_take_the_call_raises(cuda):
+    q = torch.zeros(1, 64, 2, 100, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        attention(q, q, q, body="wgmma")             # D % 8 != 0
+    with pytest.raises(ValueError, match="does not take"):
+        attention(q.float(), q.float(), q.float(), body="mma")
+    with pytest.raises(ValueError, match="does not take"):
+        attention(q, q, q, body="simt")
+    wide = torch.zeros(1, 64, 2, 196, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        attention(wide, wide, wide, body="wgmma")     # D % 8 != 0, D > 128
+    unaligned = torch.zeros(1, 64, 2, 264, dtype=torch.bfloat16,
+                            device=cuda)[..., 4:260]  # D = 256, 8-byte base
+    with pytest.raises(ValueError, match="does not take"):
+        attention(unaligned, unaligned, unaligned, body="wgmma")
+    past = torch.zeros(1, 64, 2, 264, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        attention(past, past, past, body="wgmma")     # D > 256
+    empty = torch.zeros(1, 64, 2, 0, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="D > 0"):
+        attention(empty, empty, empty)
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "simt")])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,kv_len,layout", [
+    (1, 4, 2, 200, 320, True, 0, None, "bshd"),      # two slices of D
+    (2, 4, 1, 130, 512, True, 64, None, "bhsd"),     # window, MQA
+    (1, 2, 2, 96, 300, False, 0, 70, "bshd"),        # kv_len, D % 8 != 0
+    (1, 6, 2, 64, 264, True, 0, None, "fused"),      # a slice of 8 columns
+])
+def test_head_dims_past_256_match_plain(cuda, dtype, body, B, H, Hkv, S, D,
+                                        causal, window, kv_len, layout):
+    """D > 256 through mma (bf16) and simt (f32): a block a slice of 256
+    output columns, scoring over the whole of D; "auto" takes the same."""
     q, k, v = (x.to(dtype) for x in _bshd(np.random.default_rng(S + D), B, S,
                                           H, Hkv, D, layout, cuda))
     kw = dict(causal=causal, window=window, kv_len=kv_len)
@@ -575,19 +635,3 @@ def test_wide_heads_match_plain(cuda, dtype, body, B, H, Hkv, S, D, causal,
                for b, c in flash_attention.launches_by_body.items()}
         assert ran == {b: int(b == body) for b in ran}
         assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
-
-
-def test_a_body_that_cannot_take_the_call_raises(cuda):
-    q = torch.zeros(1, 64, 2, 100, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="does not take"):
-        attention(q, q, q, body="wgmma")             # D % 8 != 0
-    with pytest.raises(ValueError, match="does not take"):
-        attention(q.float(), q.float(), q.float(), body="mma")
-    with pytest.raises(ValueError, match="does not take"):
-        attention(q, q, q, body="simt")
-    wide = torch.zeros(1, 64, 2, 256, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="does not take"):
-        attention(wide, wide, wide, body="wgmma")     # D > 128
-    past = torch.zeros(1, 64, 2, 257, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="D <= 256"):
-        attention(past, past, past)

@@ -3,12 +3,19 @@
 card: each is ``src/repro_torch/csrc/flash_attention.cu`` with a few lines
 replaced, built by nvcc with the port's flags, held against
 ``attention_ref`` and timed (device time, the profiler) at the serving
-shape and a long one, beside ``F.scaled_dot_product_attention``.
+shape, a long one, gemma3-12b's two prefill shapes at D = 256 (causal,
+and with its window of 1024) and the training shape in f32 (the simt
+body), beside ``F.scaled_dot_product_attention`` and, at D = 256, the
+``mma`` body. ``--against FILE`` builds another source of the kernel (a
+parent commit's, say) and times it in turns with the rest.
 
-    python3 tools/flash_variants.py [--only NAME ...]
+    python3 tools/flash_variants.py [--only NAME ...] [--shapes NAME ...]
+                                    [--against FILE]
 
 Needs one H100. Some variants break the function on purpose (they show
 what a part of the body costs): their errors are printed, not checked.
+Variants named ``mma_*`` change the ``mma`` body and run it at D > 128
+only.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,7 +42,13 @@ import chip_smoke  # noqa: E402
 EX2 = '  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));'
 P_EXP = """      const float p0 = ex2(fmaf(s[i], a.scale_log2, -mu[r]));
       const float p1 = ex2(fmaf(s[i + 1], a.scale_log2, -mu[r]));"""
-EDGE1 = "edge1 = edge_at(kt + 64);"
+EDGE = "edge[x] = edge_at(kt + 64 * x);"
+MMA_KV = """      load_tile<DP>(Ks, k, a.kss, kt, M_BK, a.S, a.D, vec8);
+      load_tile<DP>(Vs, v, a.vss, kt, M_BK, a.S, a.D, vec8);
+"""
+MMA_PV = """        mma_bf16(oacc[dt], pa, pack_raw(vp[0], vp[LD]),
+                 pack_raw(vp[8 * LD], vp[9 * LD]));
+"""
 
 VARIANTS = {
     "shipped": [],
@@ -44,15 +58,32 @@ VARIANTS = {
     "rows_64": [("launch_wgmma<1, 2>(a, st)", "launch_wgmma<1, 1>(a, st)")],
     # masks on the whole of every edge tile, not only on the halves
     # that need them
-    "mask_whole_tile": [(EDGE1, "edge1 = edge0 || edge_at(kt + 64);"),
-                        ("const bool edge0 = edge_at(kt),",
-                         "const bool edge0 = edge_at(kt) || edge_at(kt + 64),")],
+    "mask_whole_tile": [(EDGE, "edge[x] = edge_at(kt) || edge_at(kt + BK - 64);")],
     # diagnostics (wrong results): no masks; no exp2 at all
-    "no_mask": [("    if (edge0 || edge1) {", "    if (false) {")],
+    "no_mask": [("    if (any_edge) {", "    if (false) {")],
     "no_exp2": [(P_EXP, P_EXP.replace("ex2(fmaf", "(fmaf"))],
+    # the mma body (D = 256) without its K/V tile loads (stale tiles), and
+    # without its PV products
+    "mma_no_kv_loads": [(MMA_KV, "")],
+    "mma_no_pv": [(MMA_PV, "")],
 }
-SHAPES = {"serve": (8, 32, 8, 512, 64), "long": (4, 32, 8, 2048, 64)}
+# (B, H, Hkv, S, D, window, dtype), causal; f32 runs the simt body
+SHAPES = {"serve": (8, 32, 8, 512, 64, 0, "bfloat16"),
+          "long": (4, 32, 8, 2048, 64, 0, "bfloat16"),
+          "wide": (2, 16, 8, 1024, 256, 0, "bfloat16"),
+          "local": (2, 16, 8, 2048, 256, 1024, "bfloat16"),
+          "train": (8, 32, 8, 512, 64, 0, "float32")}
 
+
+def body_for(name: str, shape) -> str | None:
+    """The body a variant runs at a shape (None: not run there). A source
+    given by --against runs mma at D > 128, where it may lack wgmma."""
+    D, dtype = shape[4], shape[6]
+    if dtype == "float32":
+        return "simt" if not name.startswith("mma") else None
+    if name == "mma" or name.startswith("mma_"):
+        return "mma" if D > 128 else None
+    return "mma" if name == "against" and D > 128 else "wgmma"
 
 def build(name, reps, src, out_dir):
     from repro_torch.kernels import _build
@@ -71,9 +102,11 @@ def build(name, reps, src, out_dir):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     log = (proc.stdout + proc.stderr).splitlines()
-    wg = [i for i, ln in enumerate(log) if "Compiling entry" in ln
-          and "flash_fwd_wgmma" in ln]
-    ptxas = [ln.split("info    : ")[-1].strip() for i in wg
+    entries = [i for i, ln in enumerate(log) if "Compiling entry" in ln
+               and "flash_fwd" in ln]
+    # "flash_fwd_wgmmaILi4ELi2E...": the body and its template arguments
+    ptxas = [re.search(r"flash_fwd_\w+?EE", log[i]).group(0) + ": "
+             + ln.split("info    : ")[-1].strip() for i in entries
              for ln in log[i:i + 4] if "Used" in ln or "spill" in ln]
     ptxas += [ln for ln in log if "wgmma" in ln and "Performance" in ln]
     return fn, ptxas
@@ -82,6 +115,10 @@ def build(name, reps, src, out_dir):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--shapes", nargs="*", default=list(SHAPES))
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another flash_attention.cu (e.g. a parent "
+                    "commit's), built and timed in turns as 'against'")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: needs a CUDA card")
@@ -93,36 +130,49 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     src = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
     out_dir = Path(tempfile.mkdtemp(prefix="flash_variants_"))
-    names = [n for n in VARIANTS if n in args.only]
-    with ThreadPoolExecutor(len(names)) as ex:
-        built = dict(zip(names, ex.map(
-            lambda n: build(n, VARIANTS[n], src, out_dir), names)))
-    fns = {n: fn for n, (fn, _) in built.items()}
+    jobs = {n: (VARIANTS[n], src) for n in VARIANTS if n in args.only}
+    if args.against is not None:
+        jobs["against"] = ([], args.against.read_text())
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = dict(zip(jobs, ex.map(
+            lambda n: build(n, jobs[n][0], jobs[n][1], out_dir), jobs)))
     for n, (_, ptxas) in built.items():
-        print(json.dumps({"variant": n, "ptxas_wgmma_bodies": ptxas}),
+        print(json.dumps({"variant": n, "ptxas": ptxas}),
               flush=True)
     rng = np.random.default_rng(0)
-    data = {k: chip_smoke._inputs(rng, B, H, Hkv, S, D, torch.bfloat16, "bshd")
-            for k, (B, H, Hkv, S, D) in SHAPES.items()}
+    data = {k: chip_smoke._inputs(rng, *SHAPES[k][:5],
+                                  getattr(torch, SHAPES[k][6]), "bshd")
+            for k in args.shapes}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {n: {} for n in [*names, "sdpa"]}
+    wide = any(SHAPES[k][4] > 128 for k in args.shapes)
+    names = [*built, "sdpa", *(["mma"] if wide else [])]
+    rows = {n: {} for n in names}
     for rep in range(2):                    # two rounds, variants in turn
-        for name in [*names, "sdpa"]:
-            if name != "sdpa":
-                binding._fn = lambda fn=fns[name]: fn
+        for name in names:
+            fn = built[name][0] if name in built else built[next(iter(built))][0]
+            binding._fn = lambda fn=fn: fn
             for shape, (q, k, v) in data.items():
+                S, W = SHAPES[shape][3], SHAPES[shape][5]
+                body = None if name == "sdpa" else body_for(name, SHAPES[shape])
                 if name == "sdpa":
                     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                    call = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
-                                        enable_gqa=True)
+                    pos = torch.arange(S, device="cuda")
+                    mask = (pos[:, None] >= pos[None, :]) & \
+                        (pos[:, None] - pos[None, :] < W) if W else None
+                    call = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                                        is_causal=not W, enable_gqa=True)
+                elif body is None:
+                    continue
                 else:
-                    call = lambda: attention(q, k, v, body="wgmma")  # noqa: E731
+                    call = lambda: attention(q, k, v, window=W,  # noqa: E731
+                                             body=body)
                     if rep == 0:
                         ref = attention_ref(*(x.transpose(1, 2)
-                                              for x in (q, k, v)))
+                                              for x in (q, k, v)), window=W)
                         err = (call().float() - ref.transpose(1, 2).float()) \
                             .abs().max().item()
                         rows[name][f"{shape}_max_abs_err"] = err
+                        rows[name][f"{shape}_body"] = body
                 rows[name].setdefault(f"{shape}_ms", []).append(
                     chip_smoke._device_ms_per_call(call))
     for name, row in rows.items():
