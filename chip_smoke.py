@@ -29,17 +29,20 @@ Phases, one JSON line each:
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 41 cases
+  3. kernels        -- flash attention against its plain version, 48 cases
                        (the training shape at f32 among them), each
                        through "auto" and through every body that
-                       takes it (wgmma, mma for bf16; simt for f32); 17
+                       takes it (wgmma, mma for bf16; simt for f32); 19
                        of them with 128 < D <= 256, where "auto" takes
                        wgmma for aligned bf16 with D % 8 == 0, mma for
                        the other bf16 calls and simt for f32; 4 with
                        D = 320 and 512 (mma, simt: slices of 256 output
-                       columns); the last 5 at the prefill shapes of
-                       phase families (gemma3-12b's with and without its
-                       window)
+                       columns); 7 more f32 ones for the simt body's
+                       configurations and copies (ragged S, S < 64, D =
+                       1, 100, 128, 200 and 256, the window, kv_len, the
+                       model's views and unaligned views); the last 5 at
+                       the prefill shapes of phase families (gemma3-12b's
+                       with and without its window)
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -285,9 +288,14 @@ def phase_build() -> None:
 
 
 def _inputs(rng, B, H, Hkv, S, D, dtype, layout):
-    """N(0,1) q, k, v from numpy; layout "bshd" (the model's), "bhsd", or
+    """N(0,1) q, k, v from numpy; layout "bshd" (the model's), "bhsd",
     "fused": [B, S, heads, D] views of one [B, S, (H + 2 Hkv) D] projection,
-    the strided layout a fused qkv weight gives the model."""
+    the strided layout a fused qkv weight gives the model, or "offset":
+    [B, S, heads, D] views one element past an aligned base with a head
+    stride of D + 1 (no 16-byte copies)."""
+    if layout == "offset":
+        return [torch.tensor(rng.normal(size=(B, S, n, D + 1)), dtype=dtype,
+                             device="cuda")[..., 1:] for n in (H, Hkv, Hkv)]
     if layout == "fused":
         qkv = torch.tensor(rng.normal(size=(B, S, (H + 2 * Hkv) * D)),
                            dtype=dtype, device="cuda")
@@ -398,6 +406,24 @@ def kernel_cases() -> list[dict]:
             dict(base, B=2, H=4, Hkv=1, S=256, D=512, dtype=dtype,
                  kv_len=200),                       # MQA, kv_len, strided
         ]
+    # the f32 body's configurations and copy paths: ragged S, S < 64, odd D,
+    # the window, kv_len, the model's views and views with no 16-byte copy
+    f32 = torch.float32
+    cases += [
+        dict(base, B=1, H=4, Hkv=1, S=1000, D=64, dtype=f32,
+             layout="bshd"),                        # ragged S, MQA
+        dict(base, B=2, H=4, Hkv=2, S=40, D=64, dtype=f32),   # S < 64
+        dict(base, B=1, H=2, Hkv=2, S=150, D=1, dtype=f32,
+             layout="bshd"),                        # D = 1
+        dict(base, B=2, H=8, Hkv=2, S=300, D=100, dtype=f32, window=96,
+             layout="offset"),                      # D = 100, unaligned
+        dict(base, B=1, H=4, Hkv=2, S=500, D=128, dtype=f32, kv_len=333,
+             layout="fused"),                       # D = 128, kv_len
+        dict(base, B=2, H=4, Hkv=1, S=384, D=256, dtype=f32, window=100,
+             layout="offset"),                      # D = 256, unaligned
+        dict(base, B=1, H=4, Hkv=4, S=333, D=200, dtype=f32, causal=False,
+             layout="fused"),                       # D = 200, not causal
+    ]
     # the prefill shapes of phase families, bf16 on the model's layout
     for run in FAMILY_RUNS:
         cfg = _family_cfg(run)
@@ -445,7 +471,7 @@ def phase_kernels(seed: int) -> tuple[float, dict, float, dict]:
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
                           c["dtype"], c["layout"])
         kw = dict(causal=c["causal"], window=c["window"], kv_len=c["kv_len"])
-        if c["layout"] in ("bshd", "fused"):
+        if c["layout"] in ("bshd", "fused", "offset"):
             ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), **kw)
             qs, ks, vs = q, k, v
@@ -461,7 +487,7 @@ def phase_kernels(seed: int) -> tuple[float, dict, float, dict]:
         tol = TOL[c["dtype"]]
         for body in ["auto", *bodies]:
             before = dict(flash_attention.launches_by_body)
-            if c["layout"] in ("bshd", "fused"):
+            if c["layout"] in ("bshd", "fused", "offset"):
                 out = attention(q, k, v, body=body, **kw).transpose(1, 2)
             else:
                 out = flash_attention(q, k, v, body=body, **kw)

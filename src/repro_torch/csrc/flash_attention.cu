@@ -20,7 +20,8 @@
 // scores, about 8 us at 16 a clock on each of the 132 SMs (1.98 GHz). The
 // three floors are close, so copies, products and the softmax must overlap.
 //
-// Three bodies, chosen by the caller (kernels/flash_attention/kernel.py):
+// Three bodies (simt in two kernels), chosen by the caller
+// (kernels/flash_attention/kernel.py):
 //   * flash_fwd_wgmma (bf16; pointers 16-byte aligned, batch/seq/head
 //     strides multiples of 8 elements, D a multiple of 8 up to 256: TMA's
 //     rules). A block owns 128 query rows, two warpgroups of 64. Bytes: TMA
@@ -47,9 +48,27 @@
 //     128 or 256. At DP = 256 a warp's output accumulator alone takes 128
 //     registers a thread, so its Q fragments are read from shared memory at
 //     each k-step instead of being held (64 registers more would spill).
-//   * flash_fwd_simt (f32, any D): products in f32 FMA, so an f32 call
-//     stays within f32 rounding of the reference (tensor-core TF32 would
-//     not). A lane owns DCH = 4 output dims (D <= 128) or 8 (D > 128).
+//   * flash_fwd_simt (f32, D <= 256): products in f32 FMA on the CUDA
+//     cores, so an f32 call stays within f32 rounding of the reference
+//     (tensor-core TF32 would not). Bound: at the training shape (the
+//     serving shape in f32) 8.6 GFLOP of causal products, 128 us at the
+//     67 TFLOP/s FFMA peak, against 84 MB of bytes (25 us): operations.
+//     That peak is 4 FFMA warp-instructions a clock on each SM, and shared
+//     memory serves one 128-byte wavefront a clock, so both products are
+//     register-tiled outer products: at D <= 64 a thread holds 4 rows x 8
+//     keys of S and 4 rows x 8 dims of O, and a step of four dims of QK^T
+//     is 4 (broadcast) loads of Q^T and 8 of K, 16 bytes each, for 128
+//     FFMAs; a key of PV is one load of P^T and two of V for 32 FFMAs.
+//     A block owns 64 query rows; the threads of a row sit in one warp, so
+//     its max and sum reduce by shuffles (the sum once, at the end) and
+//     P^T passes through shared memory within the warp. Bytes: K and V by
+//     cp.async, 16-byte copies where bases and strides allow, 4-byte ones
+//     where they do not, zero fill past S and D; Q^T staged once, scaled.
+//     Causal q-tiles are issued heaviest first. SCfg gives each D its
+//     thread tile, stages (a two-stage ring, or V's copy under QK^T and
+//     the next K's under PV) and shared-memory budget.
+//   * flash_fwd_simt_sliced (f32, D > 256): a warp owns 8 query rows, a
+//     lane 8 output dims of a slice.
 // D > 256 (mma and simt): a block a slice of 256 output columns, scoring
 // over the whole of D in chunks of 256 (see n_slices); exact and slow. The
 // reference pads D to any multiple of 128; no configuration of the repo
@@ -113,133 +132,444 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+constexpr int CHUNK = 256;     // D > CHUNK: scores over chunks of D, O in slices
+constexpr int W_DMAX = 256;    // the wgmma body's shared memory
+
+// Blocks over the output's columns: one for D <= CHUNK, else one a slice
+// of CHUNK columns of V and O (mma and the sliced simt body).
+int n_slices(int D) { return D <= CHUNK ? 1 : (D + CHUNK - 1) / CHUNK; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
-// SIMT body: f32 FMA products
+// SIMT body: f32 FMA products, register-tiled, cp.async ring (D <= 256)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's latest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// One configuration of the f32 body, for D <= DP (64, 128 or 256). A block
+// owns BQ query rows of one (batch, head) and loops over K/V tiles of BK =
+// 64 keys. Its threads form BQ / TM row groups of CG lanes: thread (rg, cg)
+// holds the scores of rows TM rg + r and keys cg + CG c (r < TM, c < TN =
+// BK / CG) and the outputs of rows TM rg + r and dims 4 cg + 4 CG i + u (i <
+// NV, u < 4). A row group is CG lanes of one warp, so its max and sum reduce
+// by shuffles and its P^T rows stay in the warp. Shared memory (floats): Q^T
+// [DP][BQ] (scaled), K [STAGES][BK][KP], V [STAGES][BK][DP], P^T [BK][PP].
+// Pitches of DP + 4 and BQ + 4 floats put what a warp reads or writes at
+// once (K's rows cg + CG c; P^T's row groups) in distinct banks.
+template <int DP_, int STAGES_, int TM_, int CG_, int BQ_>
+struct SCfg {
+  static constexpr int DP = DP_, STAGES = STAGES_, TM = TM_, CG = CG_, BQ = BQ_;
+  static constexpr int BK = 64, THREADS = BQ / TM * CG, TN = BK / CG;
+  static constexpr int NV = DP / (4 * CG);   // 4-dim chunks of O a thread
+  static constexpr int QP = BQ, KP = DP + 4, VP = DP, PP = BQ + 4;
+  static constexpr int q = 0;
+  static constexpr int k = q + DP * QP;
+  static constexpr int v = k + STAGES * BK * KP;
+  static constexpr int p = v + STAGES * BK * VP;
+  static constexpr int smem = 4 * (p + BK * PP);
+  // blocks an SM by its 228 KB of shared memory (1 KB reserved a block);
+  // the launch bound caps registers so that as many fit
+  static constexpr int min_blocks = 228 * 1024 / (smem + 1024);
+  static_assert(TM % 4 == 0 && 32 % CG == 0 && DP % (4 * CG) == 0 &&
+                    THREADS % 32 == 0 && BQ * DP / 4 % THREADS == 0 &&
+                    BK * DP / 4 % THREADS == 0 && min_blocks >= 1,
+                "simt configuration");
+};
+
+// The configurations by D. DP = 64: 4 x 8 thread tiles, 128 threads, one
+// stage: 66 KB, three blocks (twelve warps) an SM at up to 168 registers a
+// thread; two stages (99 KB, two blocks) and 256-thread 4 x 16 tiles
+// measured slower (tools/flash_variants.py). DP = 128: 4 x 16 tiles, two
+// stages, 179 KB; DP = 256: one stage, 210 KB; one block an SM each.
+using S64 = SCfg<64, 1, 4, 8, 64>;
+using S128 = SCfg<128, 2, 4, 16, 64>;
+using S256 = SCfg<256, 1, 4, 16, 64>;
+
+// Rows [s0, s0 + BK) of one head's [S, D] slice (row stride ss) into a
+// [BK][pitch] tile by cp.async; zero past S and D. vec4: 16-byte copies (a
+// row's last one shortened at D), else 4-byte ones.
+template <int DP, int BK, int THREADS>
+__device__ __forceinline__ void copy_tile(uint32_t dst, int pitch,
+                                          const float* src, int ss, int s0,
+                                          int S, int D, bool vec4) {
+  if (vec4) {
+    // a thread copies the same 4 dims of rows r0, r0 + RS, ...
+    constexpr int CH = DP / 4, RS = THREADS / CH;
+    static_assert(THREADS % CH == 0 && BK % RS == 0, "copy layout");
+    const int r0 = threadIdx.x / CH, d = threadIdx.x % CH * 4;
+    const int dbytes = 4 * max(0, min(4, D - d));   // 0 past D
+    const float* row = dbytes ? src + (size_t)(s0 + r0) * ss + d : src;
+    const size_t step = dbytes ? (size_t)RS * ss : 0;
+    dst += 4u * (r0 * pitch + d);
+    if (s0 + BK <= S) {  // every row of the tile inside S
+#pragma unroll
+      for (int n = 0; n < BK / RS; ++n)
+        cp_async16(dst + 4u * (n * RS * pitch), row + n * step, dbytes);
+    } else {
+#pragma unroll
+      for (int n = 0; n < BK / RS; ++n) {
+        const bool in = s0 + r0 + n * RS < S;
+        cp_async16(dst + 4u * (n * RS * pitch), in ? row + n * step : src,
+                   in ? dbytes : 0);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int n = 0; n < BK * DP / THREADS; ++n) {
+      const int i = threadIdx.x + n * THREADS;
+      const int r = i / DP, d = i % DP, s = s0 + r;
+      const bool in = s < S && d < D;
+      cp_async4(dst + 4u * (r * pitch + d),
+                in ? src + (size_t)s * ss + d : src, in ? 4 : 0);
+    }
+  }
+}
+
+// Grid (H, B, q-tiles), q-tiles from the last (the heaviest when causal).
+// STAGES = 2: tile j + 1 is copied while tile j is multiplied, one block
+// barrier a tile. STAGES = 1: K and V copied apart (V of tile j under its
+// QK^T, K of tile j + 1 under its PV), three barriers a tile.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::min_blocks)
+    flash_fwd_simt(Args a, int vec4) {
+  constexpr int DP = C::DP, STAGES = C::STAGES, TM = C::TM, CG = C::CG;
+  constexpr int BQ = C::BQ, BK = C::BK, TN = C::TN, NV = C::NV;
+  extern __shared__ __align__(16) float s_smem[];
+  float* Qs = s_smem + C::q;
+  float* Ks = s_smem + C::k;
+  float* Vs = s_smem + C::v;
+  float* Ps = s_smem + C::p;
+  const uint32_t sK = smem_u32(Ks), sV = smem_u32(Vs);
+
+  const int tid = threadIdx.x, rg = tid / CG, cg = tid % CG;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int hk = h / (a.H / a.Hkv);
+  const float* q = static_cast<const float*>(a.q) + (size_t)b * a.qsb + (size_t)h * a.qsh;
+  const float* k = static_cast<const float*>(a.k) + (size_t)b * a.ksb + (size_t)hk * a.ksh;
+  const float* v = static_cast<const float*>(a.v) + (size_t)b * a.vsb + (size_t)hk * a.vsh;
+  float* o = static_cast<float*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh;
+
+  int kv_start, kv_end;
+  kv_range(a, q0, BQ, BK, &kv_start, &kv_end);
+  const int n_tiles = kv_end > kv_start ? (kv_end - kv_start + BK - 1) / BK : 0;
+  auto copy_k = [&](int it) {
+    copy_tile<DP, BK, C::THREADS>(sK + 4u * ((it % STAGES) * BK * C::KP), C::KP,
+                                  k, a.kss, kv_start + it * BK, a.S, a.D, vec4);
+  };
+  auto copy_v = [&](int it) {
+    copy_tile<DP, BK, C::THREADS>(sV + 4u * ((it % STAGES) * BK * C::VP), C::VP,
+                                  v, a.vss, kv_start + it * BK, a.S, a.D, vec4);
+  };
+  if (n_tiles > 0) {
+    copy_k(0);
+    if (STAGES > 1) copy_v(0);
+    cp_async_commit();
+  }
+
+  // Q^T, scaled into the exp2 domain, while the first tile lands: every
+  // load issued before the first store
+  constexpr int NQ = BQ * DP / 4 / C::THREADS;   // 4-dim pieces a thread
+  float x[NQ][4];
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) {
+    const int i = tid + n * C::THREADS, r = i % BQ, d = i / BQ * 4, s = q0 + r;
+    x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+    if (s < a.S) {
+      const float* row = q + (size_t)s * a.qss + d;
+      if (vec4 && d + 4 <= a.D) {
+        const float4 t = *reinterpret_cast<const float4*>(row);
+        x[n][0] = t.x; x[n][1] = t.y; x[n][2] = t.z; x[n][3] = t.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[n][u] = d + u < a.D ? row[u] : 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) {
+    const int i = tid + n * C::THREADS, r = i % BQ, d = i / BQ * 4;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) Qs[(d + u) * C::QP + r] = x[n][u] * a.scale_log2;
+  }
+
+  float m[TM], l[TM], acc[TM][4 * NV];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;  // this thread's share of the row's sum
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) acc[r][c] = 0.f;
+  }
+  const float* Qr = Qs + TM * rg;
+  float* Pw = Ps + TM * rg;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt = kv_start + it * BK;
+    const float* Kt = Ks + (it % STAGES) * BK * C::KP;
+    const float* Vt = Vs + (it % STAGES) * BK * C::VP;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and Q) visible; tile it - 1 consumed
+    if constexpr (STAGES > 1) {
+      if (it + 1 < n_tiles) {
+        copy_k(it + 1);
+        copy_v(it + 1);
+      }
+    } else {
+      copy_v(it);
+    }
+    cp_async_commit();
+
+    // S = Q K^T: TN 16-byte loads of K and TM of Q^T for 4 TM TN FFMAs
+    float sc[TM][TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) sc[r][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DP; d += 4) {
+      float qv[4][TM];  // Q^T of dims d .. d + 3
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int x = 0; x < TM; x += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(Qr + (d + u) * C::QP + x);
+          qv[u][x] = t.x; qv[u][x + 1] = t.y; qv[u][x + 2] = t.z; qv[u][x + 3] = t.w;
+        }
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const float4 t = *reinterpret_cast<const float4*>(Kt + (cg + CG * c) * C::KP + d);
+        const float kv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < TM; ++r) sc[r][c] = fmaf(qv[u][r], kv[u], sc[r][c]);
+      }
+    }
+
+    // masks only where the tile meets the diagonal, the kv_len (or S) edge
+    // or the window's far edge
+    if (kt + BK > a.kv_lim || (a.causal && kt + BK - 1 > q0) ||
+        (a.window > 0 && q0 + BQ - 1 - kt >= a.window)) {
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c)
+          if (!live(a, q0 + TM * rg + r, kt + cg + CG * c)) sc[r][c] = -INFINITY;
+    }
+
+    // online softmax over the row group's CG lanes; P^T into shared memory
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      float mx = sc[r][0];
+#pragma unroll
+      for (int c = 1; c < TN; ++c) mx = fmaxf(mx, sc[r][c]);
+#pragma unroll
+      for (int x = 1; x < CG; x <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float m_new = fmaxf(m[r], mx);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;  // no live key yet
+      const float alpha = ex2(m[r] - mu);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        sc[r][c] = ex2(sc[r][c] - mu);
+        l[r] += sc[r][c];
+      }
+#pragma unroll
+      for (int c = 0; c < 4 * NV; ++c) acc[r][c] *= alpha;
+    }
+#pragma unroll
+    for (int c = 0; c < TN; ++c)
+#pragma unroll
+      for (int x = 0; x < TM; x += 4)
+        *reinterpret_cast<float4*>(Pw + (cg + CG * c) * C::PP + x) =
+            make_float4(sc[x][c], sc[x + 1][c], sc[x + 2][c], sc[x + 3][c]);
+
+    if constexpr (STAGES == 1) {
+      __syncthreads();  // K of tile it consumed
+      if (it + 1 < n_tiles) copy_k(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // V of tile it landed
+      __syncthreads();
+    } else {
+      __syncwarp();     // the row groups' P^T rows written
+    }
+
+    // O += P V: TM / 4 + NV 16-byte loads for 4 TM NV FFMAs a key
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) {
+      float pr[TM];
+#pragma unroll
+      for (int x = 0; x < TM; x += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(Pw + j * C::PP + x);
+        pr[x] = t.x; pr[x + 1] = t.y; pr[x + 2] = t.z; pr[x + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(Vt + j * C::VP + 4 * CG * i + 4 * cg);
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          acc[r][4 * i] = fmaf(pr[r], vv.x, acc[r][4 * i]);
+          acc[r][4 * i + 1] = fmaf(pr[r], vv.y, acc[r][4 * i + 1]);
+          acc[r][4 * i + 2] = fmaf(pr[r], vv.z, acc[r][4 * i + 2]);
+          acc[r][4 * i + 3] = fmaf(pr[r], vv.w, acc[r][4 * i + 3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+#pragma unroll
+    for (int x = 1; x < CG; x <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], x);
+    const int row = q0 + TM * rg + r;
+    if (row >= a.S) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no live key: 0
+    float* orow = o + (size_t)row * a.oss;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = 4 * CG * i + 4 * cg;
+      if (vec4 && d + 4 <= a.D) {
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(acc[r][4 * i] * inv, acc[r][4 * i + 1] * inv,
+                        acc[r][4 * i + 2] * inv, acc[r][4 * i + 3] * inv);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (d + u < a.D) orow[d + u] = acc[r][4 * i + u] * inv;
+      }
+    }
+  }
+}
+
+// Shared memory above 48 KB needs the attribute, set on the current device
+// before each launch (cheap, and right for whichever device is current).
+template <class C>
+cudaError_t launch_simt(const Args& a, int vec4, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_simt<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.H, a.B, (a.S + C::BQ - 1) / C::BQ);
+  flash_fwd_simt<C><<<grid, C::THREADS, C::smem, stream>>>(a, vec4);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// SIMT body past D = 256: a block a slice of CHUNK output columns
 // ---------------------------------------------------------------------------
 
 constexpr int S_BQ = 32;                 // query rows per block
 constexpr int S_BK = 64;                 // keys per tile: two per lane
 constexpr int S_WARPS = 4;
 constexpr int S_RPW = S_BQ / S_WARPS;    // query rows per warp
-constexpr int CHUNK = 256;  // D > CHUNK: scores over chunks of D, O in slices
-constexpr int W_DMAX = 256;              // the wgmma body's shared memory
+constexpr int S_DCH = CHUNK / 32;        // output dims per lane
 
-// Blocks over the output's columns: one for D <= CHUNK, else one a slice
-// of CHUNK columns of V and O. Each block of a slice scores over the whole
-// of D, restaging Q and K a chunk of CHUNK dims at a time: exact, and it
-// repeats the scores once a slice (no configuration of the repo has
-// D > 256; the reference pads D to any multiple of 128).
-int n_slices(int D) { return D <= CHUNK ? 1 : (D + CHUNK - 1) / CHUNK; }
-
-size_t simt_smem(int D) {
-  // Qs [BQ][DS], Kt [DS][BK+1] (transposed, padded: conflict-free both
-  // ways), Vs [BK][DS], Ps [warps][rows][BK]; DS = min(D, CHUNK)
-  D = D < CHUNK ? D : CHUNK;
-  return sizeof(float) *
-         (size_t)(S_BQ * D + D * (S_BK + 1) + S_BK * D + S_WARPS * S_RPW * S_BK);
+// Qs [BQ][CHUNK], Kt [CHUNK][BK+1] (transposed, padded: conflict-free both
+// ways), Vs [BK][CHUNK], Ps [warps][rows][BK]: 169 KB, one block an SM.
+constexpr size_t sliced_smem() {
+  return sizeof(float) * (size_t)(S_BQ * CHUNK + CHUNK * (S_BK + 1) +
+                                  S_BK * CHUNK + S_WARPS * S_RPW * S_BK);
 }
 
-// DCH: output dims per lane, so the body takes D <= 32 * DCH a slice. CH:
-// D > CHUNK, in slices (blockIdx.y = slice * H + head).
-template <int DCH, bool CH>
-__global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
+// blockIdx.y = slice * H + head. Each block scores over the whole of D,
+// restaging Q and K a chunk of CHUNK dims at a time: exact, and it repeats
+// the scores once a slice (no configuration of the repo has D > 256; the
+// reference pads D to any multiple of 128).
+__global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt_sliced(Args a) {
   extern __shared__ float smem[];
   const int D = a.D;
-  const int DS = CH ? CHUNK : D;           // staged width of Q, K and V
-  const int n_ch = CH ? (D + CHUNK - 1) / CHUNK : 1;
+  const int n_ch = (D + CHUNK - 1) / CHUNK;
   float* Qs = smem;
-  float* Kt = Qs + S_BQ * DS;
-  float* Vs = Kt + DS * (S_BK + 1);
-  float* Ps = Vs + S_BK * DS;
+  float* Kt = Qs + S_BQ * CHUNK;
+  float* Vs = Kt + CHUNK * (S_BK + 1);
+  float* Ps = Vs + S_BK * CHUNK;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * S_BQ, b = blockIdx.z;
-  const int h = CH ? blockIdx.y % a.H : blockIdx.y;
-  const int d0 = CH ? blockIdx.y / a.H * CHUNK : 0;  // this block's columns
-  const int DV = CH ? min(CHUNK, D - d0) : D;
+  const int h = blockIdx.y % a.H;
+  const int d0 = blockIdx.y / a.H * CHUNK;  // this block's columns
+  const int DV = min(CHUNK, D - d0);
   const int hk = h / (a.H / a.Hkv);
   const float* q = static_cast<const float*>(a.q) + (size_t)b * a.qsb + (size_t)h * a.qsh;
   const float* k = static_cast<const float*>(a.k) + (size_t)b * a.ksb + (size_t)hk * a.ksh;
   const float* v = static_cast<const float*>(a.v) + (size_t)b * a.vsb + (size_t)hk * a.vsh + d0;
   float* o = static_cast<float*>(a.o) + (size_t)b * a.osb + (size_t)h * a.osh + d0;
 
-  if (!CH) {
-    for (int i = tid; i < S_BQ * D; i += blockDim.x) {
-      const int r = i / D, d = i - r * D, s = q0 + r;
-      Qs[i] = s < a.S ? q[(size_t)s * a.qss + d] * a.scale_log2 : 0.f;
-    }
-  }
-
   int kv_start, kv_end;
   kv_range(a, q0, S_BQ, S_BK, &kv_start, &kv_end);
 
   const int r0 = warp * S_RPW;
-  float m[S_RPW], l[S_RPW], acc[S_RPW][DCH];
+  float m[S_RPW], l[S_RPW], acc[S_RPW][S_DCH];
 #pragma unroll
   for (int r = 0; r < S_RPW; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < S_DCH; ++c) acc[r][c] = 0.f;
   }
   float* P = Ps + r0 * S_BK;
 
   for (int kt = kv_start; kt < kv_end; kt += S_BK) {
     float s0[S_RPW], s1[S_RPW];
-    if constexpr (CH) {  // the scores over chunks of D; V's slice once
 #pragma unroll
-      for (int r = 0; r < S_RPW; ++r) s0[r] = s1[r] = 0.f;
-      for (int c = 0; c < n_ch; ++c) {
-        __syncthreads();  // previous chunk or tile consumed
-        // chunk c of Q (scaled) and of K (transposed), zero past S and D
-        for (int i = tid; i < S_BQ * CHUNK; i += blockDim.x) {
-          const int r = i / CHUNK, d = i - r * CHUNK, s = q0 + r;
-          const int dd = c * CHUNK + d;
-          Qs[i] = s < a.S && dd < D ? q[(size_t)s * a.qss + dd] * a.scale_log2 : 0.f;
-        }
+    for (int r = 0; r < S_RPW; ++r) s0[r] = s1[r] = 0.f;
+    for (int c = 0; c < n_ch; ++c) {  // the scores over chunks of D
+      __syncthreads();  // previous chunk or tile consumed
+      // chunk c of Q (scaled) and of K (transposed), zero past S and D
+      for (int i = tid; i < S_BQ * CHUNK; i += blockDim.x) {
+        const int r = i / CHUNK, d = i - r * CHUNK, s = q0 + r;
+        const int dd = c * CHUNK + d;
+        Qs[i] = s < a.S && dd < D ? q[(size_t)s * a.qss + dd] * a.scale_log2 : 0.f;
+      }
+      for (int i = tid; i < S_BK * CHUNK; i += blockDim.x) {
+        const int j = i / CHUNK, d = i - j * CHUNK, s = kt + j;
+        const int dd = c * CHUNK + d;
+        Kt[d * (S_BK + 1) + j] = s < a.S && dd < D ? k[(size_t)s * a.kss + dd] : 0.f;
+      }
+      if (c == 0) {  // V's slice once
         for (int i = tid; i < S_BK * CHUNK; i += blockDim.x) {
           const int j = i / CHUNK, d = i - j * CHUNK, s = kt + j;
-          const int dd = c * CHUNK + d;
-          Kt[d * (S_BK + 1) + j] = s < a.S && dd < D ? k[(size_t)s * a.kss + dd] : 0.f;
+          Vs[i] = s < a.S && d < DV ? v[(size_t)s * a.vss + d] : 0.f;
         }
-        if (c == 0) {
-          for (int i = tid; i < S_BK * CHUNK; i += blockDim.x) {
-            const int j = i / CHUNK, d = i - j * CHUNK, s = kt + j;
-            Vs[i] = s < a.S && d < DV ? v[(size_t)s * a.vss + d] : 0.f;
-          }
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int d = 0; d < CHUNK; ++d) {
-          const float k0 = Kt[d * (S_BK + 1) + lane];
-          const float k1 = Kt[d * (S_BK + 1) + lane + 32];
-#pragma unroll
-          for (int r = 0; r < S_RPW; ++r) {
-            const float qd = Qs[(r0 + r) * CHUNK + d];
-            s0[r] = fmaf(qd, k0, s0[r]);
-            s1[r] = fmaf(qd, k1, s1[r]);
-          }
-        }
-      }
-    } else {
-      __syncthreads();  // Qs written / previous tile consumed
-      for (int i = tid; i < S_BK * D; i += blockDim.x) {
-        const int j = i / D, d = i - j * D, s = kt + j;
-        const bool in = s < a.S;
-        Kt[d * (S_BK + 1) + j] = in ? k[(size_t)s * a.kss + d] : 0.f;
-        Vs[i] = in ? v[(size_t)s * a.vss + d] : 0.f;
       }
       __syncthreads();
-
-#pragma unroll
-      for (int r = 0; r < S_RPW; ++r) s0[r] = s1[r] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < CHUNK; ++d) {
         const float k0 = Kt[d * (S_BK + 1) + lane];
         const float k1 = Kt[d * (S_BK + 1) + lane + 32];
 #pragma unroll
         for (int r = 0; r < S_RPW; ++r) {
-          const float qd = Qs[(r0 + r) * D + d];
+          const float qd = Qs[(r0 + r) * CHUNK + d];
           s0[r] = fmaf(qd, k0, s0[r]);
           s1[r] = fmaf(qd, k1, s1[r]);
         }
@@ -258,7 +588,7 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < DCH; ++c) acc[r][c] *= alpha;
+      for (int c = 0; c < S_DCH; ++c) acc[r][c] *= alpha;
       P[r * S_BK + lane] = p0;
       P[r * S_BK + lane + 32] = p1;
     }
@@ -266,17 +596,17 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
 
 #pragma unroll 4
     for (int j = 0; j < S_BK; ++j) {
-      float vv[DCH];
+      float vv[S_DCH];
 #pragma unroll
-      for (int c = 0; c < DCH; ++c) {
+      for (int c = 0; c < S_DCH; ++c) {
         const int d = lane + 32 * c;
-        vv[c] = d < DV ? Vs[j * DS + d] : 0.f;  // DS = DV = D unless CH
+        vv[c] = d < DV ? Vs[j * CHUNK + d] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < S_RPW; ++r) {
         const float p = P[r * S_BK + j];
 #pragma unroll
-        for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+        for (int c = 0; c < S_DCH; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
       }
     }
     __syncwarp();
@@ -288,25 +618,21 @@ __global__ void __launch_bounds__(S_WARPS * 32) flash_fwd_simt(Args a) {
     if (qi >= a.S) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no live key: 0
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) {
+    for (int c = 0; c < S_DCH; ++c) {
       const int d = lane + 32 * c;
       if (d < DV) o[(size_t)qi * a.oss + d] = acc[r][c] * inv;
     }
   }
 }
 
-// Shared memory above 48 KB needs the attribute, set on the current device
-// before each launch (cheap, and right for whichever device is current).
-// At D >= 256 a block takes 169 KB (one block an SM).
-template <int DCH, bool CH>
-cudaError_t launch_simt(const Args& a, cudaStream_t stream) {
-  const size_t smem = simt_smem(a.D);
+cudaError_t launch_simt_sliced(const Args& a, cudaStream_t stream) {
+  const size_t smem = sliced_smem();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_simt<DCH, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_simt_sliced, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.S + S_BQ - 1) / S_BQ, a.H * n_slices(a.D), a.B);
-  flash_fwd_simt<DCH, CH><<<grid, S_WARPS * 32, smem, stream>>>(a);
+  flash_fwd_simt_sliced<<<grid, S_WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -604,10 +930,6 @@ struct WCfg {
   static constexpr int smem = bar + 8 * n_bar + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(bar), "r"(count) : "memory");
@@ -759,12 +1081,6 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], uint32_t a0,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -1086,15 +1402,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.kv_lim = kv_len < S ? kv_len : S;
   a.scale_log2 = LOG2E / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (body == BODY_SIMT)
-    return dtype != 0 ? (int)cudaErrorInvalidValue
-                      : (int)(D <= 128   ? launch_simt<4, false>(a, st)
-                              : D <= 256 ? launch_simt<8, false>(a, st)
-                                         : launch_simt<8, true>(a, st));
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int strides[] = {qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, osb, oss, osh};
   bool aligned = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  if (body == BODY_SIMT) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    // 16-byte copies where every row of every operand starts aligned
+    int vec4 = aligned;
+    for (int s : strides) vec4 = vec4 && s % 4 == 0;
+    return (int)(D <= 64    ? launch_simt<S64>(a, vec4, st)
+                 : D <= 128 ? launch_simt<S128>(a, vec4, st)
+                 : D <= 256 ? launch_simt<S256>(a, vec4, st)
+                            : launch_simt_sliced(a, st));
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (body == BODY_MMA) {
     // 16-byte vector loads where every row of every operand starts aligned
     int vec8 = aligned && D % 8 == 0;

@@ -8,10 +8,15 @@ the next synchronisation.
 The source has three bodies. ``wgmma`` (TMA copies, wgmma products) takes
 the bf16 calls with D <= 256 (``WGMMA_D_MAX``: its shared memory and
 registers hold no wider row) that meet TMA's rules; ``mma`` (mma.sync) every
-bf16 call; ``simt`` (f32 FMA) every f32 call. ``mma`` and ``simt`` take any
-D > 0: past 256 a block computes a slice of 256 output columns, scoring over
-the whole of D. ``body="auto"`` takes the first of these that takes the
-call; nothing falls back from one body to another.
+bf16 call; ``simt`` every f32 call. ``simt`` multiplies in f32 FMA on the
+CUDA cores (no TF32), bound by the 67 TFLOP/s FFMA peak: register-tiled
+products (a thread a 4 x 4 tile of scores), 64 query rows a block, K and V
+through a ``cp.async`` ring, 16-byte copies where every base is 16-byte
+aligned and every stride a multiple of 4 elements, 4-byte copies otherwise
+(the C entry point chooses). ``mma`` and ``simt`` take any D > 0: past 256 a
+block computes a slice of 256 output columns, scoring over the whole of D.
+``body="auto"`` takes the first of these that takes the call; nothing falls
+back from one body to another.
 """
 
 from __future__ import annotations

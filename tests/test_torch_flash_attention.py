@@ -36,6 +36,11 @@ def _t(*xs):
     ((1, 1, 200, 80), True, 0),       # ragged S and D
     ((1, 2, 160, 256), True, 0),      # D = 256 (gemma3-12b's heads)
     ((1, 1, 96, 200), False, 0),      # D = 200: padded to 256 there
+    ((1, 2, 1000, 64), True, 0),      # ragged S: 16 tiles of 64, the last short
+    ((2, 1, 40, 64), True, 0),        # S < 64: one partial tile
+    ((1, 2, 150, 1), True, 0),        # D = 1
+    ((1, 1, 130, 60), False, 0),      # D = 60, ragged S
+    ((1, 2, 300, 100), True, 96),     # D = 100, a window
 ])
 def test_mha_matches_pallas_kernel(shape, causal, window):
     B, H, S, D = shape
@@ -181,6 +186,13 @@ def _bshd_strides(B, S, H, Hkv, D):
     (torch.float32, 192, _bshd_strides(2, 256, 8, 2, 192), _ALIGNED, "simt"),
     (torch.float32, 200, _bshd_strides(2, 256, 8, 2, 200), _ALIGNED, "simt"),
     (torch.float32, 256, _bshd_strides(2, 1024, 16, 8, 256), _ALIGNED, "simt"),
+    # every f32 call at every D: simt (its 4-byte copies take any layout)
+    (torch.float32, 1, _bshd_strides(1, 150, 2, 2, 1), _ALIGNED, "simt"),
+    (torch.float32, 60, _bshd_strides(2, 130, 4, 2, 60), _ALIGNED, "simt"),
+    (torch.float32, 128, _bshd_strides(1, 300, 4, 4, 128), _ALIGNED, "simt"),
+    (torch.float32, 64, [1000 * 4 * 65, 4 * 65, 65] * 4,
+     [p + 4 for p in _ALIGNED], "simt"),     # views one element off
+    (torch.float32, 256, [300 * 6 * 256, 6 * 256, 256] * 4, _ALIGNED, "simt"),
 ])
 def test_auto_body_choice(dtype, D, strides, ptrs, want):
     from repro_torch.kernels.flash_attention.kernel import select_body, takes

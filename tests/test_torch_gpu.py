@@ -51,6 +51,15 @@ def cuda():
     (1, 4, 4, 256, 64, True, 64, None),
     (2, 4, 1, 256, 64, False, 0, 130),
     (1, 2, 2, 96, 100, True, 0, 70),
+    (8, 32, 8, 512, 64, True, 0, None),     # the training shape (simt)
+    (1, 4, 1, 1000, 64, True, 0, None),     # ragged S, MQA
+    (2, 4, 2, 40, 64, True, 0, None),       # S < 64: one partial tile
+    (1, 2, 2, 150, 1, True, 0, None),       # D = 1
+    (2, 4, 2, 130, 60, False, 0, None),     # D = 60, ragged
+    (2, 8, 2, 300, 64, True, 48, None),     # window, H/Hkv = 4
+    (1, 4, 4, 300, 128, False, 0, 200),     # D = 128, kv_len < S, 1:1
+    (2, 4, 1, 333, 200, True, 100, None),   # D = 200, window, MQA
+    (1, 4, 4, 300, 256, True, 0, 250),      # D = 256, kv_len < S
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, causal, window,
                               kv_len):
@@ -65,19 +74,20 @@ def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, causal, window,
     assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
-def test_kernel_takes_strided_model_layout(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_strided_model_layout(cuda, dtype):
     """[B, S, H, D] views of a fused projection, as the model may give."""
     rng = np.random.default_rng(1)
     B, S, H, Hkv, D = 2, 128, 4, 2, 64
     qkv = torch.tensor(rng.normal(size=(B, S, (H + 2 * Hkv) * D)),
-                       dtype=torch.bfloat16, device=cuda)
+                       dtype=dtype, device=cuda)
     q = qkv[..., :H * D].unflatten(-1, (H, D))
     k = qkv[..., H * D:(H + Hkv) * D].unflatten(-1, (Hkv, D))
     v = qkv[..., (H + Hkv) * D:].unflatten(-1, (Hkv, D))
     out = attention(q, k, v)
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2)).transpose(1, 2)
-    assert (out.float() - ref.float()).abs().max().item() < 3e-2
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
 def test_smoke_model_on_cuda_matches_cpu(cuda):
@@ -479,13 +489,16 @@ def test_quantized_read_on_cuda_matches_cpu(cuda, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _bshd(rng, B, S, H, Hkv, D, layout, device):
-    """bf16 q, k, v as [B, S, heads, D] views: contiguous ("bshd"),
-    transposed [B, heads, S, D] storage ("bhsd"), or slices of one fused
-    projection ("fused", as a model may give)."""
+def _bshd(rng, B, S, H, Hkv, D, layout, device, dtype=torch.bfloat16):
+    """q, k, v as [B, S, heads, D] views: contiguous ("bshd"), transposed
+    [B, heads, S, D] storage ("bhsd"), slices of one fused projection
+    ("fused", as a model may give), or views one element past an aligned
+    base with an odd head stride ("offset": no 16-byte copies)."""
     def mk(*shape):
-        return torch.tensor(rng.normal(size=shape), dtype=torch.bfloat16,
+        return torch.tensor(rng.normal(size=shape), dtype=dtype,
                             device=device)
+    if layout == "offset":
+        return tuple(mk(B, S, n, D + 1)[..., 1:] for n in (H, Hkv, Hkv))
     if layout == "fused":
         qkv = mk(B, S, (H + 2 * Hkv) * D)
         return (qkv[..., :H * D].unflatten(-1, (H, D)),
@@ -564,14 +577,17 @@ def test_auto_takes_the_body_the_rule_gives(cuda, dtype, D, want):
     (2, 4, 4, 192, 256, False, 0, 130, "bshd"),      # kv_len < S
     (1, 4, 2, 130, 200, True, 0, None, "bshd"),      # D = 200
     (1, 4, 2, 96, 192, False, 0, None, "fused"),
+    (2, 4, 1, 300, 256, True, 100, 270, "fused"),    # window, kv_len, MQA
+    (1, 8, 2, 40, 200, True, 0, None, "bhsd"),       # S < 64, GQA 4:1
 ])
 def test_wide_heads_match_plain(cuda, dtype, body, B, H, Hkv, S, D, causal,
                                 window, kv_len, layout):
     """128 < D <= 256 through the wgmma and mma (bf16) and simt (f32)
     bodies, and "auto" takes wgmma (bf16; every case is aligned, D % 8 ==
-    0) or simt (f32)."""
-    q, k, v = (x.to(dtype) for x in _bshd(np.random.default_rng(S + D), B, S,
-                                          H, Hkv, D, layout, cuda))
+    0) or simt (f32). The inputs are made in their dtype, so the strided
+    layouts reach the f32 body as views."""
+    q, k, v = _bshd(np.random.default_rng(S + D), B, S, H, Hkv, D, layout,
+                    cuda, dtype)
     kw = dict(causal=causal, window=window, kv_len=kv_len)
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), **kw).transpose(1, 2)
@@ -585,6 +601,34 @@ def test_wide_heads_match_plain(cuda, dtype, body, B, H, Hkv, S, D, causal,
         want = auto if asked == "auto" else body
         assert ran == {b: int(b == want) for b in ran}
         assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, "simt"),
+                                        (torch.bfloat16, "mma")])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window,kv_len", [
+    (2, 8, 2, 256, 64, True, 0, None),
+    (1, 4, 1, 1000, 64, True, 0, None),      # ragged S, MQA
+    (2, 4, 4, 300, 100, True, 64, None),     # D = 100, window
+    (1, 4, 2, 200, 128, False, 0, 150),      # kv_len < S
+    (1, 4, 4, 130, 256, True, 0, None),      # D = 256
+])
+def test_unaligned_view_matches_plain(cuda, dtype, want, B, H, Hkv, S, D,
+                                      causal, window, kv_len):
+    """Views one element past an aligned base with an odd head stride: the
+    simt body's 4-byte copies (f32) and the mma body's element loads
+    (bf16), which "auto" takes."""
+    q, k, v = _bshd(np.random.default_rng(S + D), B, S, H, Hkv, D, "offset",
+                    cuda, dtype)
+    assert q.data_ptr() % 16 != 0 and q.stride(2) % 4 != 0
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    before = dict(flash_attention.launches_by_body)
+    out = attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ran = {b: c - before[b] for b, c in flash_attention.launches_by_body.items()}
+    assert ran == {b: int(b == want) for b in ran}
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), **kw).transpose(1, 2)
+    assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
 
 
 def test_a_body_that_cannot_take_the_call_raises(cuda):
@@ -622,8 +666,8 @@ def test_head_dims_past_256_match_plain(cuda, dtype, body, B, H, Hkv, S, D,
                                         causal, window, kv_len, layout):
     """D > 256 through mma (bf16) and simt (f32): a block a slice of 256
     output columns, scoring over the whole of D; "auto" takes the same."""
-    q, k, v = (x.to(dtype) for x in _bshd(np.random.default_rng(S + D), B, S,
-                                          H, Hkv, D, layout, cuda))
+    q, k, v = _bshd(np.random.default_rng(S + D), B, S, H, Hkv, D, layout,
+                    cuda, dtype)
     kw = dict(causal=causal, window=window, kv_len=kv_len)
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), **kw).transpose(1, 2)

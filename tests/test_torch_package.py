@@ -199,6 +199,23 @@ def test_every_source_is_built():
         assert "fast_math" not in code and "ftz" not in code, name
 
 
+def test_f32_flash_body_is_fma_only():
+    """The f32 body (``flash_fwd_simt``, its copy helper, and the sliced
+    kernel past D = 256) multiplies in f32 FMA: no tensor-core instruction
+    (``mma``, ``wgmma``) and no TF32, so an f32 call stays within f32
+    rounding of the reference. Its copies are cp.async."""
+    from repro_torch.kernels._build import CSRC
+    code = _code((CSRC / "flash_attention.cu").read_text())
+    simt = [_function(code, name) for name in
+            ("flash_fwd_simt", "copy_tile", "flash_fwd_simt_sliced")]
+    for text in simt:
+        low = text.lower()
+        assert "mma" not in low and "tf32" not in low, text[:80]
+        assert "fmaf(" in text or "cp_async" in text, text[:80]
+    assert "cp_async16(" in simt[1] and "cp_async4(" in simt[1]
+    assert "cp_async_wait<" in simt[0] and "__launch_bounds__" in code
+
+
 def test_dequant_affine_route_cannot_be_contracted():
     """An FMA would change the float64 sum ``q * scale + zero`` of some
     codes by one ulp, and the read path must give NumPy's bits: the

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Variants of the flash-attention kernel's wgmma body, side by side on one
-card: each is ``src/repro_torch/csrc/flash_attention.cu`` with a few lines
-replaced, built by nvcc with the port's flags, held against
+"""Variants of the flash-attention kernel's wgmma and simt bodies, side by
+side on one card: each is ``src/repro_torch/csrc/flash_attention.cu`` with
+a few lines replaced, built by nvcc with the port's flags, held against
 ``attention_ref`` and timed (device time, the profiler) at the serving
 shape, a long one, gemma3-12b's two prefill shapes at D = 256 (causal,
 and with its window of 1024) and the training shape in f32 (the simt
@@ -15,7 +15,7 @@ parent commit's, say) and times it in turns with the rest.
 Needs one H100. Some variants break the function on purpose (they show
 what a part of the body costs): their errors are printed, not checked.
 Variants named ``mma_*`` change the ``mma`` body and run it at D > 128
-only.
+only; ``simt_*`` change the ``simt`` body and run at the f32 shapes only.
 """
 
 from __future__ import annotations
@@ -49,6 +49,29 @@ MMA_KV = """      load_tile<DP>(Ks, k, a.kss, kt, M_BK, a.S, a.D, vec8);
 MMA_PV = """        mma_bf16(oacc[dt], pa, pack_raw(vp[0], vp[LD]),
                  pack_raw(vp[8 * LD], vp[9 * LD]));
 """
+SIMT_EXP = "        sc[r][c] = ex2(sc[r][c] - mu);"
+SIMT_QK = "for (int r = 0; r < TM; ++r) sc[r][c] = fmaf(qv[u][r], kv[u], sc[r][c]);"
+SIMT_PV = """          acc[r][4 * i] = fmaf(pr[r], vv.x, acc[r][4 * i]);
+          acc[r][4 * i + 1] = fmaf(pr[r], vv.y, acc[r][4 * i + 1]);
+          acc[r][4 * i + 2] = fmaf(pr[r], vv.z, acc[r][4 * i + 2]);
+          acc[r][4 * i + 3] = fmaf(pr[r], vv.w, acc[r][4 * i + 3]);
+"""
+SIMT_NO_QK = "for (int r = 0; r < TM; ++r) (void)0;"
+SIMT_SHFL = "        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));\n"
+SIMT_MASK = ("if (!live(a, q0 + TM * rg + r, kt + cg + CG * c)) "
+             "sc[r][c] = -INFINITY;")
+SIMT_COPY = [("      copy_v(it);\n", ""),
+             ("      if (it + 1 < n_tiles) copy_k(it + 1);\n", "")]
+SIMT_D64 = "using S64 = SCfg<64, 1, 4, 8, 64>;"
+SIMT_QK_LOOP = "#pragma unroll 8\n    for (int d = 0; d < DP; d += 4) {"
+SIMT_PV_LOOP = "#pragma unroll 8\n    for (int j = 0; j < BK; ++j) {"
+
+
+def simt_tile(stages, tm, cg, bq):
+    """The D <= 64 configuration with TM rows x CG lanes a row group and
+    BQ rows a block (csrc SCfg)."""
+    return [(SIMT_D64, f"using S64 = SCfg<64, {stages}, {tm}, {cg}, {bq}>;")]
+
 
 VARIANTS = {
     "shipped": [],
@@ -66,13 +89,53 @@ VARIANTS = {
     # without its PV products
     "mma_no_kv_loads": [(MMA_KV, "")],
     "mma_no_pv": [(MMA_PV, "")],
+    # the simt body at D <= 64 with two stages (two blocks an SM, not
+    # three), and with other thread tiles: rows x lanes a row group, rows a
+    # block, stages (4 x 16 x 64 at two stages: 256 threads, the first
+    # design; 128 rows: four q-tiles a head at S = 512)
+    "simt_two_stage": simt_tile(2, 4, 8, 64),
+    "simt_4x16_64": simt_tile(2, 4, 16, 64),
+    "simt_4x16_64_one_stage": simt_tile(1, 4, 16, 64),
+    "simt_8x16_64_one_stage": simt_tile(1, 8, 16, 64),
+    "simt_8x8_64_one_stage": simt_tile(1, 8, 8, 64),
+    "simt_8x16_128_one_stage": simt_tile(1, 8, 16, 128),
+    # D <= 128 at one stage (one block an SM either way)
+    "simt_d128_one_stage": [("using S128 = SCfg<128, 2, 4, 16, 64>;",
+                             "using S128 = SCfg<128, 1, 4, 16, 64>;")],
+    # the products' loops unrolled 2 and 4 times (8 shipped), and in full
+    "simt_unroll_2": [(SIMT_QK_LOOP, SIMT_QK_LOOP.replace("unroll 8",
+                                                          "unroll 2")),
+                      (SIMT_PV_LOOP, SIMT_PV_LOOP.replace("unroll 8",
+                                                          "unroll 2"))],
+    "simt_unroll_4": [(SIMT_QK_LOOP, SIMT_QK_LOOP.replace("unroll 8",
+                                                          "unroll 4")),
+                      (SIMT_PV_LOOP, SIMT_PV_LOOP.replace("unroll 8",
+                                                          "unroll 4"))],
+    "simt_unroll": [(SIMT_QK_LOOP, SIMT_QK_LOOP.replace("unroll 8", "unroll")),
+                    (SIMT_PV_LOOP, SIMT_PV_LOOP.replace("unroll 8",
+                                                        "unroll 16"))],
+    # 4-byte copies everywhere (the unaligned views' path)
+    "simt_4byte": [("int vec4 = aligned;", "int vec4 = 0;")],
+    # simt diagnostics (wrong results): no exp2 of the scores; no softmax
+    # reductions or exp2; no masks; no copies after the first tile; no
+    # QK^T products; no PV products; neither product
+    "simt_no_exp2": [(SIMT_EXP, SIMT_EXP.replace("ex2(", "("))],
+    "simt_no_softmax": [(SIMT_EXP, SIMT_EXP.replace("ex2(", "(")),
+                        (SIMT_SHFL, "        (void)0;\n")],
+    "simt_no_mask": [(SIMT_MASK, ";")],
+    "simt_no_copy": SIMT_COPY,
+    "simt_no_qk": [(SIMT_QK, SIMT_NO_QK)],
+    "simt_no_pv": [(SIMT_PV, "")],
+    "simt_no_products": [(SIMT_QK, SIMT_NO_QK), (SIMT_PV, "")],
 }
 # (B, H, Hkv, S, D, window, dtype), causal; f32 runs the simt body
 SHAPES = {"serve": (8, 32, 8, 512, 64, 0, "bfloat16"),
           "long": (4, 32, 8, 2048, 64, 0, "bfloat16"),
           "wide": (2, 16, 8, 1024, 256, 0, "bfloat16"),
           "local": (2, 16, 8, 2048, 256, 1024, "bfloat16"),
-          "train": (8, 32, 8, 512, 64, 0, "float32")}
+          "train": (8, 32, 8, 512, 64, 0, "float32"),
+          "train_d128": (8, 32, 8, 512, 128, 0, "float32"),
+          "wide_f32": (2, 16, 8, 1024, 256, 0, "float32")}
 
 
 def body_for(name: str, shape) -> str | None:
@@ -81,6 +144,8 @@ def body_for(name: str, shape) -> str | None:
     D, dtype = shape[4], shape[6]
     if dtype == "float32":
         return "simt" if not name.startswith("mma") else None
+    if name.startswith("simt_"):
+        return None
     if name == "mma" or name.startswith("mma_"):
         return "mma" if D > 128 else None
     return "mma" if name == "against" and D > 128 else "wgmma"
@@ -105,8 +170,12 @@ def build(name, reps, src, out_dir):
     entries = [i for i, ln in enumerate(log) if "Compiling entry" in ln
                and "flash_fwd" in ln]
     # "flash_fwd_wgmmaILi4ELi2E...": the body and its template arguments
-    ptxas = [re.search(r"flash_fwd_\w+?EE", log[i]).group(0) + ": "
-             + ln.split("info    : ")[-1].strip() for i in entries
+    # ("flash_fwd_simt_sliced...": none)
+    names = [(re.search(r"flash_fwd_\w+?EE", log[i])
+              or re.search(r"flash_fwd_[a-z_]+", log[i])).group(0)
+             for i in entries]
+    ptxas = [name + ": " + ln.split("info    : ")[-1].strip()
+             for i, name in zip(entries, names)
              for ln in log[i:i + 4] if "Used" in ln or "spill" in ln]
     ptxas += [ln for ln in log if "wgmma" in ln and "Performance" in ln]
     return fn, ptxas
@@ -144,7 +213,8 @@ def main(argv=None) -> int:
                                   getattr(torch, SHAPES[k][6]), "bshd")
             for k in args.shapes}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    wide = any(SHAPES[k][4] > 128 for k in args.shapes)
+    wide = any(SHAPES[k][4] > 128 and SHAPES[k][6] == "bfloat16"
+               for k in args.shapes)
     names = [*built, "sdpa", *(["mma"] if wide else [])]
     rows = {n: {} for n in names}
     for rep in range(2):                    # two rounds, variants in turn
