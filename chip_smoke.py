@@ -6,10 +6,11 @@
 Drives the port's three main paths. Serving: full-width llama3.2-1b
 (random weights from the seed, bf16) served by ``ServeEngine``: 8 prompts of
 512 tokens, a prefill and 32 greedy decode steps, with prefill attention in
-the hand-written flash-attention kernel; then the other attention block
-families the same way at full width (gemma3-12b, deepseek-moe-16b and
-starcoder2-15b at full depth, mixtral-8x22b on 2 layers), with windowed
-prefill attention in the same kernel. The predicate read:
+the hand-written flash-attention kernel; then the other block families
+the same way at full width (gemma3-12b, deepseek-moe-16b, starcoder2-15b,
+minicpm3-4b (MLA), recurrentgemma-9b (RG-LRU) and rwkv6-7b (RWKV-6) at
+full depth, mixtral-8x22b on 2 layers), with windowed and MLA prefill
+attention in the same kernel. The predicate read:
 ``dataset(p, device="cuda").select(...).where(...).to_table()`` over a 4 Mi-row
 ads table, the LM corpus and a 4 Mi-row table of quantized columns, written
 by the port's writer, with the dequantize of BF16 and affine-integer columns
@@ -29,7 +30,7 @@ Phases, one JSON line each:
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 48 cases
+  3. kernels        -- flash attention against its plain version, 50 cases
                        (the training shape at f32 among them), each
                        through "auto" and through every body that
                        takes it (wgmma, mma for bf16; simt for f32); 19
@@ -40,9 +41,11 @@ Phases, one JSON line each:
                        columns); 7 more f32 ones for the simt body's
                        configurations and copies (ragged S, S < 64, D =
                        1, 100, 128, 200 and 256, the window, kv_len, the
-                       model's views and unaligned views); the last 5 at
+                       model's views and unaligned views); the last 7 at
                        the prefill shapes of phase families (gemma3-12b's
-                       with and without its window)
+                       with and without its window, MLA_CASE: minicpm3-4b
+                       at D = 96, RG_LOCAL: recurrentgemma-9b's local
+                       layer, MQA at D = 256 with window 2048)
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -85,58 +88,74 @@ Phases, one JSON line each:
                        pairs, its plain version and SDPA with the
                        equivalent boolean mask; the mma body's times
                        beside it
- 12. families       -- the attention block families served at full width
-                       through ServeEngine in bf16: gemma3-12b (48 layers,
-                       B=2, prompt 2048, 32 new tokens: 48 flash launches
-                       a prefill, all wgmma, 40 with window=1024),
+ 12. family_times   -- the wgmma body at MLA_CASE (the padded call) beside
+                       SDPA with V at 64 unpadded, with the padded and
+                       the unpadded work's bounds; at RG_LOCAL beside SDPA
+                       with the boolean mask; warm and cold
+ 13. families       -- the block families served at full width through
+                       ServeEngine in bf16: gemma3-12b (48 layers, B=2,
+                       prompt 2048, 32 new tokens: 48 flash launches a
+                       prefill, all wgmma, 40 with window=1024),
                        deepseek-moe-16b (28 layers, B=8, prompt 512: 28
                        wgmma), starcoder2-15b (40 layers, B=8, prompt
-                       512) and mixtral-8x22b (2 of its 56 layers, B=8,
-                       prompt 512); each family's prefill and decode
-                       times, bounds, peak memory, a profiled prefill
-                       and 4 decode steps (flash share, expert products'
-                       device ms, pairs dropped by capacity), host
-                       seconds; then family_logits at full width and one
-                       pattern repeat: gemma3-12b at 6 layers with a
-                       prompt of 1100 (past its window) and
-                       deepseek-moe-16b at 2 layers (dense + MoE, capacity
-                       for every pair): prefill through the kernel vs the
-                       plain version with f32 probabilities, greedy decode
-                       vs a fresh prefill
- 13. filter_times   -- the range filter at C=4, N=2**20 against its bound
+                       512), mixtral-8x22b (2 of its 56 layers, B=8,
+                       prompt 512), minicpm3-4b (62 layers, B=8, prompt
+                       512: 62 wgmma at D = 96), recurrentgemma-9b (38
+                       layers, B=2, prompt 4096: 12 wgmma with window
+                       2048, none in the 26 RG-LRU layers) and rwkv6-7b
+                       (32 layers, B=8, prompt 512: no launch), the last
+                       twice: the loop over time, then rwkv_chunked; each
+                       family's prefill and decode times, bounds, peak
+                       memory, a profiled prefill and 4 decode steps
+                       (flash share, expert products' device ms, pairs
+                       dropped by capacity, finite logits: required,
+                       but of rwkv_chunked, which must stay non-finite
+                       from the chunked WKV's f32 overflow), host seconds;
+                       then family_logits at full width and one pattern
+                       repeat: gemma3-12b at 6 layers with a prompt of
+                       1100 (past its window), deepseek-moe-16b at 2
+                       layers (dense + MoE, capacity for every pair),
+                       minicpm3-4b at 1, recurrentgemma-9b at 3 with a
+                       prompt of 2100 (at f32) and rwkv6-7b at 1: prefill
+                       through the kernel vs the plain version with f32
+                       probabilities, greedy decode vs a fresh prefill;
+                       recurrentgemma-9b's local layer alone at bf16, on
+                       its attention output, the same two checks;
+                       rwkv6-7b's chunked WKV vs the loop over time
+ 14. filter_times   -- the range filter at C=4, N=2**20 against its bound
                        and its plain version
- 14. dequant_times  -- the column-list body at the ads payload's launch
+ 15. dequant_times  -- the column-list body at the ads payload's launch
                        shape (12 BF16 columns of 2**20 rows) and on one
                        column, the [R, C] body on one column, the
                        bench_quantization probe and an INT16 column, against
                        the bound, the plain version and, for bf16 bits, the
                        PyTorch call
- 15. bitunpack_times -- the unpack kernel at 2**24 values, widths 1, 4, 11
+ 16. bitunpack_times -- the unpack kernel at 2**24 values, widths 1, 4, 11
                         and 32
- 16. scan           -- the read path: launch counts per scan (the filter once
+ 17. scan           -- the read path: launch counts per scan (the filter once
                        a row group evaluated, the column-list dequant once a
                        decode call with a BF16 or affine column), results
                        equal to the NumPy route, serially and on 4 threads,
                        scan times, and the time split (host stages, device
                        copies and kernels)
- 17. compliance     -- delete_where on copies of the ads table (a float32
+ 18. compliance     -- delete_where on copies of the ads table (a float32
                        range over two dense features at L2 and L1, 16 users
                        at L2): files byte-identical to the device="cpu"
                        route's, the audit, the rows left, the launches,
                        the I/O ratio and the host time of each delete
- 18. sink           -- write_to of the ads query, dequantized, sorted by
+ 19. sink           -- write_to of the ads query, dequantized, sorted by
                        dense_0, in shards of 2**19 rows: shards
                        byte-identical to the cpu route's, read back equal to
                        the scan sorted, the launches; the sink of an L1
                        deleted copy leaves no raw occurrence
- 19. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
+ 20. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
                        the cpu loader, a mid-epoch resume, the filter's
                        launches with the loader's thread and a main-thread
                        scan reading at once, tokens per second;
                        quality_filtered_read against its cpu route
- 20. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
+ 21. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
                        in a fresh interpreter, Prometheus text round trip
- 21. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
+ 22. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
                        train_tokens_per_s beside the bound, peak memory,
                        flash launches (2 x 16 a step, all simt), finite
                        losses; one step traced by kernel (GEMMs, flash
@@ -150,7 +169,7 @@ Phases, one JSON line each:
                        at bf16 compute (all wgmma); the launcher at --smoke
                        to step 6, then resumed to 8; a restored step equal
                        to the uninterrupted one
- 22. train_times    -- flash attention at the training shape (f32, simt)
+ 23. train_times    -- flash attention at the training shape (f32, simt)
                        against its bound, its plain version and SDPA, warm
                        and cold; the plain backward's device time
 
@@ -320,18 +339,38 @@ WIDE_CASE = dict(B=2, H=16, Hkv=8, S=1024, D=256, dtype=torch.bfloat16,
 
 # phase families: each model at full width, served at bf16 (B, prompt P,
 # `new` greedy tokens, `max_seq` cache positions); `layers` cuts the depth
-# where the whole model does not fit one card (mixtral-8x22b: 281 GB)
+# where the whole model does not fit one card (mixtral-8x22b: 281 GB);
+# `overrides` are config fields set for the run (rwkv6-7b's chunked WKV
+# beside the configured loop over time)
 FAMILY_RUNS = (
     dict(arch="gemma3_12b", B=2, P=2048, new=32, max_seq=2080),
     dict(arch="deepseek_moe_16b", B=8, P=512, new=32, max_seq=1024),
     dict(arch="starcoder2_15b", B=8, P=512, new=32, max_seq=1024),
     dict(arch="mixtral_8x22b", B=8, P=512, new=32, max_seq=1024, layers=2),
+    dict(arch="minicpm3_4b", B=8, P=512, new=32, max_seq=1024),
+    dict(arch="recurrentgemma_9b", B=2, P=4096, new=32, max_seq=4128),
+    dict(arch="rwkv6_7b", B=8, P=512, new=32, max_seq=1024),
+    dict(arch="rwkv6_7b", B=8, P=512, new=32, max_seq=1024,
+         overrides=dict(rwkv_chunked=True)),
 )
+# the kernel at MLA's prefill shape (minicpm3-4b: 40 heads, qk dim 64 + 32,
+# V padded from 64 to 96) and at recurrentgemma-9b's local layers (MQA,
+# head_dim 256, a prompt of twice the window)
+MLA_CASE = dict(B=8, H=40, Hkv=40, S=512, D=96, dtype=torch.bfloat16,
+                causal=True, window=0, kv_len=None, layout="bshd")
+MLA_DV = 64
+RG_LOCAL = dict(B=2, H=16, Hkv=1, S=4096, D=256, window=2048)
+
+
+def _family_label(run) -> str:
+    return run["arch"] + "".join(f"_{k}" for k, v in
+                                 run.get("overrides", {}).items() if v)
 
 
 def _family_cfg(run):
     import repro_torch.configs as configs
-    cfg = configs.get(run["arch"]).scaled(compute_dtype="bfloat16")
+    cfg = configs.get(run["arch"]).scaled(compute_dtype="bfloat16",
+                                          **run.get("overrides", {}))
     if run.get("layers"):
         (blocks, _), = cfg.segments
         cfg = cfg.scaled(segments=((blocks, run["layers"] // len(blocks)),))
@@ -339,13 +378,26 @@ def _family_cfg(run):
 
 
 def _windows(cfg) -> dict:
-    """{window the flash kernel is given: layers} of a prefill."""
+    """{window the flash kernel is given: layers} of a prefill: one launch
+    for each layer that attends (full, global, window, local, mla), none
+    for the recurrent ones (rglru, rwkv)."""
+    from repro_torch.models.transformer import ATTENDING, WINDOWED
     out: dict = {}
     for blocks, rep in cfg.segments:
         for b in blocks:
-            w = cfg.window if b.split(":")[0] in ("window", "local") else 0
-            out[w] = out.get(w, 0) + rep
+            kind = b.split(":")[0]
+            if kind in ATTENDING:
+                w = cfg.window if kind in WINDOWED else 0
+                out[w] = out.get(w, 0) + rep
     return out
+
+
+def _attn_dim(cfg) -> int:
+    """The head dim the flash kernel is given: MLA's qk dim (nope + rope;
+    V is padded up to it), else head_dim."""
+    if cfg.mla is not None:
+        return cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return cfg.head_dim
 
 
 def kernel_cases() -> list[dict]:
@@ -425,14 +477,26 @@ def kernel_cases() -> list[dict]:
              layout="fused"),                       # D = 200, not causal
     ]
     # the prefill shapes of phase families, bf16 on the model's layout
+    # (MLA_CASE among them), each once
     for run in FAMILY_RUNS:
         cfg = _family_cfg(run)
         for window in sorted(_windows(cfg)):
-            cases.append(dict(B=run["B"], H=cfg.n_heads, Hkv=cfg.n_kv_heads,
-                              S=run["P"], D=cfg.head_dim,
-                              dtype=torch.bfloat16, causal=True,
-                              window=window, kv_len=None, layout="bshd"))
+            case = dict(B=run["B"], H=cfg.n_heads, Hkv=cfg.n_kv_heads,
+                        S=run["P"], D=_attn_dim(cfg), dtype=torch.bfloat16,
+                        causal=True, window=window, kv_len=None,
+                        layout="bshd")
+            if case not in cases:
+                cases.append(case)
+    check(MLA_CASE in cases and _rg_local_case() in cases,
+          "kernel cases: no case at MLA_CASE or RG_LOCAL")
     return cases
+
+
+def _rg_local_case() -> dict:
+    return dict(B=RG_LOCAL["B"], H=RG_LOCAL["H"], Hkv=RG_LOCAL["Hkv"],
+                S=RG_LOCAL["S"], D=RG_LOCAL["D"], dtype=torch.bfloat16,
+                causal=True, window=RG_LOCAL["window"], kv_len=None,
+                layout="bshd")
 
 
 def _bodies(q, k, v) -> tuple[str, list]:
@@ -457,15 +521,17 @@ def _want_body(dtype, D: int) -> str:
     return "wgmma" if D % 8 == 0 and D <= 256 else "mma"
 
 
-def phase_kernels(seed: int) -> tuple[float, dict, float, dict]:
+def phase_kernels(seed: int) -> tuple[float, dict, float, dict, dict]:
     """The kernel vs attention_ref on the card, each case through "auto"
     and through every body that takes it; returns the wgmma body's error
     at the serving shape, the wgmma and mma bodies' at WIDE_CASE, the simt
-    body's at TRAIN_CASE and the wgmma and mma bodies' at GEMMA_LOCAL."""
+    body's at TRAIN_CASE, the wgmma and mma bodies' at GEMMA_LOCAL, and the
+    wgmma and mma bodies' at MLA_CASE ("mla") and RG_LOCAL ("rg_local")."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
     serve_err = train_err = None
     wide_err, window_err = {}, {}
+    family_err: dict = {"mla": {}, "rg_local": {}}
     for i, c in enumerate(kernel_cases()):
         rng = np.random.default_rng(seed + i)
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
@@ -513,9 +579,15 @@ def phase_kernels(seed: int) -> tuple[float, dict, float, dict]:
             if body in ("wgmma", "mma") and [c[k] for k in GEMMA_LOCAL] == \
                     list(GEMMA_LOCAL.values()):
                 window_err[body] = err
-    check(len(window_err) == 2 and len(wide_err) == 2,
-          "no wgmma or mma case at WIDE_CASE or GEMMA_LOCAL")
-    return serve_err, wide_err, train_err, window_err
+            for name, case in (("mla", MLA_CASE), ("rg_local",
+                                                   _rg_local_case())):
+                if c == case and body in ("wgmma", "mma"):
+                    family_err[name][body] = err
+    check(len(window_err) == 2 and len(wide_err) == 2
+          and all(len(e) == 2 for e in family_err.values()),
+          "no wgmma or mma case at WIDE_CASE, GEMMA_LOCAL, MLA_CASE or "
+          "RG_LOCAL")
+    return serve_err, wide_err, train_err, window_err, family_err
 
 
 def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
@@ -531,14 +603,15 @@ def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
 
 @contextlib.contextmanager
 def model_attention(fn):
-    """Route the model's prefill attention through fn for one run."""
-    from repro_torch.models import transformer
+    """Route the model's prefill attention (the attention blocks' and
+    MLA's) through fn for one run."""
+    from repro_torch.models import mla, transformer
     saved = transformer.attention
-    transformer.attention = fn
+    transformer.attention = mla.attention = fn
     try:
         yield saved
     finally:
-        transformer.attention = saved
+        transformer.attention = mla.attention = saved
 
 
 def _bound(ref, got) -> tuple[float, float]:
@@ -685,12 +758,14 @@ def phase_logits(seed: int, gen) -> None:
             check(err < bound, f"decode step {i}: {err} >= {bound}")
 
 
-def _kernel_table(prof, top: int = 8, ranges=()) -> tuple[float, list]:
+def _kernel_table(prof, top: int = 8, ranges=(),
+                  averages=None) -> tuple[float, list]:
     """Device kernels only (host-side operator rows would count them twice,
-    and so would the device rows of the record_function ``ranges``)."""
+    and so would the device rows of the record_function ``ranges``);
+    ``averages``: ``prof.key_averages()`` where the caller has it."""
     from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
+            for e in (averages or prof.key_averages())
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
             and e.key not in ranges]
     rows.sort(key=lambda r: -r[1])
@@ -871,6 +946,79 @@ def phase_window_times(seed: int) -> dict:
     return row
 
 
+def phase_family_times(seed: int) -> dict:
+    """The wgmma body at the new families' prefill shapes, warm and cold in
+    L2, against its bound, its plain version and SDPA. MLA_CASE: the
+    padded call the model makes (q, k and V padded to 96), its bound from
+    ``_flash_work`` at D = 96, the unpadded MLA call's bound (V and the
+    output at 64) beside it, and SDPA given q, k at 96 and V at 64
+    unpadded. RG_LOCAL: recurrentgemma-9b's local layer (MQA, window 2048,
+    a prompt of twice the window) beside SDPA with the boolean
+    causal-and-window mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention, attention_ref
+    sdpa = F.scaled_dot_product_attention
+    out = {}
+    c = MLA_CASE
+    B, H, Hkv, S, D = (c[k] for k in ("B", "H", "Hkv", "S", "D"))
+    q, k, v64 = _inputs(np.random.default_rng(seed), B, H, Hkv, S, D,
+                        torch.bfloat16, "bshd")
+    v64 = v64[..., :MLA_DV].contiguous()
+    v = F.pad(v64, (0, D - MLA_DV))
+    qt, kt, vt64 = q.transpose(1, 2), k.transpose(1, 2), v64.transpose(1, 2)
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size())
+    row, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=True, body="wgmma"),
+        lambda: attention_ref(qt, kt, v.transpose(1, 2), causal=True),
+        bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt64, is_causal=True))
+    got = attention(q, k, v, causal=True)[..., :MLA_DV]
+    lib = sdpa(qt, kt, vt64, is_causal=True).transpose(1, 2)
+    err, bound = _bound(lib, got)
+    check(err < bound, f"MLA shape: padded kernel vs SDPA at dv 64: "
+          f"{err} >= {bound}")
+    # the unpadded MLA work: q, k at 96, V and the output at 64; QK^T at 96
+    # and PV at 64 for each live (query, key) pair of each head
+    mla_bytes = B * S * H * q.element_size() * (2 * D + 2 * MLA_DV)
+    mla_ops = 2 * (D + MLA_DV) * live_pairs
+    mla_bound_ms = max(mla_bytes / HBM_BYTES_PER_S,
+                       mla_ops / BF16_FLOP_PER_S) * 1e3
+    emit("family_times", shape=[B, H, Hkv, S, D], dv=MLA_DV,
+         dtype="bfloat16", causal=True, body="wgmma", arch="minicpm3-4b",
+         **extra, live_scores=live_pairs, unpadded_bound_ms=mla_bound_ms,
+         unpadded_roofline_share=mla_bound_ms / row["ms"],
+         library_call="SDPA, q and k at 96, V at 64 unpadded",
+         padded_vs_sdpa_max_abs_err=err,
+         wgmma_over_library=row["ms"] / row["library_ms"], **row)
+    out["mla"] = dict(row, unpadded_bound_ms=mla_bound_ms,
+                      cold_l2_ms=extra["cold_l2_ms"])
+
+    c = RG_LOCAL
+    B, H, Hkv, S, D, W = (c[k] for k in ("B", "H", "Hkv", "S", "D",
+                                         "window"))
+    q, k, v = _inputs(np.random.default_rng(seed), B, H, Hkv, S, D,
+                      torch.bfloat16, "bshd")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size(), window=W)
+    row, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=True, window=W, body="wgmma"),
+        lambda: attention_ref(qt, kt, vt, causal=True, window=W),
+        bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    emit("family_times", shape=[B, H, Hkv, S, D], dtype="bfloat16",
+         causal=True, window=W, body="wgmma", arch="recurrentgemma-9b",
+         **extra, live_scores=live_pairs,
+         live_share=live_pairs / (B * H * S * (S + 1) // 2),
+         library_call="SDPA, boolean causal-and-window mask",
+         wgmma_over_library=row["ms"] / row["library_ms"], **row)
+    out["rg_local"] = dict(row, cold_l2_ms=extra["cold_l2_ms"])
+    return out
+
+
 @contextlib.contextmanager
 def _moe_probes(drops: list):
     """Name the routed experts' products in the profiler (a record_function
@@ -899,11 +1047,15 @@ def _moe_probes(drops: list):
 def _family_profile(model, prompts, max_seq: int, steps: int = 4) -> dict:
     """One prefill and ``steps`` decode steps under torch.profiler: device
     time, busy share, the flash kernel's and the GEMMs' device time, the
-    routed experts' device time (range ``moe_experts``), and the pairs
-    dropped by capacity."""
+    routed experts' device time (range ``moe_experts``), the pairs
+    dropped by capacity, and whether the last logits are finite. Host
+    operators are recorded only for the MoE families (their range needs
+    them): rwkv6-7b's loop over time launches about 10^5 kernels a
+    prefill, and each host record costs the profiler's processing time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    moe = any(b.endswith(":moe") for bl, _ in model.cfg.segments for b in bl)
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
     out = {}
     with torch.inference_mode():
         toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
@@ -921,12 +1073,14 @@ def _family_profile(model, prompts, max_seq: int, steps: int = 4) -> dict:
                             cache, lg.argmax(-1)[:, None])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            dev, table = _kernel_table(prof, top=6, ranges=("moe_experts",))
-            kernels = [e for e in prof.key_averages()
+            averages = prof.key_averages()
+            dev, table = _kernel_table(prof, top=6, ranges=("moe_experts",),
+                                       averages=averages)
+            kernels = [e for e in averages
                        if e.device_type == DeviceType.CUDA
                        and e.self_device_time_total > 0
                        and e.key != "moe_experts"]
-            experts = max([e.device_time_total for e in prof.key_averages()
+            experts = max([e.device_time_total for e in averages
                            if e.key == "moe_experts"], default=0)
             flash = sum(e.self_device_time_total for e in kernels
                         if "flash_fwd" in e.key)
@@ -939,7 +1093,8 @@ def _family_profile(model, prompts, max_seq: int, steps: int = 4) -> dict:
             / 1e3,
                 moe_experts_ms=experts / 1e3,
                 dropped_pairs=int(sum(int(d) for d, _ in drops)),
-                routed_pairs=int(sum(n for _, n in drops)), top=table)
+                routed_pairs=int(sum(n for _, n in drops)),
+                logits_finite=bool(torch.isfinite(lg).all()), top=table)
     return out
 
 
@@ -947,9 +1102,14 @@ def _serve_bounds(model, cfg, B: int, P: int, max_seq: int) -> dict:
     """Least times of the serving path. A prefill does the products of
     every non-embedding weight a token uses (the routed experts' top_k of
     n_experts), the causal attention's live pairs (within the window where
-    there is one) and the last token's logits; it reads every weight once.
-    A decode step reads every weight but the unrouted experts' (at most
-    B * top_k of n_experts a layer) and the whole f32 cache once."""
+    there is one; QK^T at the kernel's head dim and PV at V's, 64 for MLA)
+    and the last token's logits; it reads every weight once. The
+    recurrences' elementwise work (RG-LRU's scan, RWKV's WKV: under 1% of
+    the products at these widths) is left out. A decode step reads every
+    weight but the unrouted experts' (at most B * top_k of n_experts a
+    layer) and the whole f32 cache once, and writes the recurrent states
+    (RWKV's S, RG-LRU's h and conv) once: each of a block's cache tensors
+    as ``transformer.block_cache`` declares it."""
     from repro_torch.models import transformer as tf
     head = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     expert = sum(p.numel() for n, p in model.named_parameters()
@@ -957,21 +1117,80 @@ def _serve_bounds(model, cfg, B: int, P: int, max_seq: int) -> dict:
     share = cfg.top_k / cfg.n_experts if expert else 0.0
     active = model.n_params - head - expert + expert * share
     live = sum(rep * _live_pairs(P, w) for w, rep in _windows(cfg).items())
-    flops = (2 * active * B * P + 4 * cfg.head_dim * cfg.n_heads * B * live
-             + 2 * cfg.vocab * cfg.d_model * B)
+    dv = cfg.mla.v_head_dim if cfg.mla is not None else cfg.head_dim
+    flops = (2 * active * B * P + 2 * (_attn_dim(cfg) + dv) * cfg.n_heads
+             * B * live + 2 * cfg.vocab * cfg.d_model * B)
     size = 2                                            # bf16 weights
     param_bytes = model.n_params * size
-    cache_bytes = sum(
-        2 * rep * B * tf.cache_slots(cfg, b.split(":")[0], max_seq)
-        * cfg.n_kv_heads * cfg.head_dim * 4
-        for blocks, rep in cfg.segments for b in blocks)
+    cache_bytes = state_bytes = 0
+    for blocks, rep in cfg.segments:
+        for b in blocks:
+            c = tf.block_cache(cfg, b, B, max_seq, torch.float32,
+                               device="meta")
+            n = rep * sum(t.numel() * t.element_size() for t in c.values())
+            if b.split(":")[0] in ("rwkv", "rglru"):
+                state_bytes += n
+            else:
+                cache_bytes += n
     routed = min(1.0, B * share) if expert else 0.0
-    step_bytes = (param_bytes - expert * size * (1 - routed)) + cache_bytes
+    step_bytes = ((param_bytes - expert * size * (1 - routed)) + cache_bytes
+                  + 2 * state_bytes)
     prefill_s = max(flops / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S)
     return dict(prefill_bound_ms=prefill_s * 1e3, prefill_flops=int(flops),
                 decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3,
                 decode_bytes_per_step=int(step_bytes),
-                cache_bytes=int(cache_bytes))
+                cache_bytes=int(cache_bytes),
+                recurrent_state_bytes=int(state_bytes))
+
+
+F32_EXP_MAX = math.log(torch.finfo(torch.float32).max)     # 88.72
+WKV_CLAMP = -60.0    # wkv_chunked's floor on a chunk's cumulative log-decay
+
+
+def _wkv_overflow_probe(model, prompts, max_seq: int) -> dict:
+    """Where a prefill through ``wkv_chunked`` turns non-finite, and why.
+    Each layer's call is recorded: whether its inputs and its output are
+    finite, its least log-decay, and whether ``k / prod w`` (its
+    ``k * exp(-ce - lw)``, ce the exclusive cumulative log-decay clamped at
+    WKV_CLAMP) is finite. Past the clamp, a step whose log-decay is below
+    -(F32_EXP_MAX + WKV_CLAMP) overflows f32 there, and the chunk's
+    outputs after it turn to inf or NaN: the reference's form, which the
+    port copies (``tests/test_torch_rwkv.py``). Returns the first layer
+    with a non-finite output, with its record."""
+    from repro_torch.models import rwkv6
+    chunked, calls = rwkv6.wkv_chunked, []
+
+    def probe(r, k, v, w, u, state, chunk: int = 64):
+        y, S = chunked(r, k, v, w, u, state, chunk)
+        B, T, H, D = r.shape
+        lw = torch.log(torch.clamp(w.reshape(B, -1, chunk, H, D).float(),
+                                   min=1e-38))
+        ce = torch.clamp(torch.cumsum(lw, dim=2) - lw, min=WKV_CLAMP)
+        k_dec = k.reshape(lw.shape).float() * torch.exp(-ce - lw)
+        calls.append(dict(
+            inputs_finite=all(bool(torch.isfinite(t).all())
+                              for t in (r, k, v, w, state)),
+            min_log_w=lw.min().item(),
+            max_exponent=(-ce - lw).max().item(),
+            k_dec_finite=bool(torch.isfinite(k_dec).all()),
+            output_finite=bool(torch.isfinite(y).all()
+                               and torch.isfinite(S).all())))
+        return y, S
+
+    B = prompts.shape[0]
+    rwkv6.wkv_chunked = probe
+    try:
+        with torch.inference_mode():
+            toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+            model.prefill({"tokens": toks},
+                          model.init_cache(B, max_seq, dtype=torch.float32))
+    finally:
+        rwkv6.wkv_chunked = chunked
+    first = next((i for i, c in enumerate(calls)
+                  if not c["output_finite"]), None)
+    return dict(layers=len(calls), first_non_finite_layer=first,
+                exponent_limit=F32_EXP_MAX,
+                **(calls[first] if first is not None else {}))
 
 
 def _serve_family(seed: int, run: dict) -> int:
@@ -1005,12 +1224,14 @@ def _serve_family(seed: int, run: dict) -> int:
     by_window = dict(flash_attention.launches_by_window)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     body = "wgmma"        # every family: aligned bf16, D <= 256
-    check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
+    attending = sum(_windows(cfg).values())
+    check(launched == dict(flash_attention=attending, range_mask=0,
                            dequant=0, dequant_packed=0, bitunpack=0),
           f"{cfg.name}: serving launched {launched}, expected "
-          f"flash_attention {cfg.n_layers} times and no other kernel")
-    check(by_body == {body: cfg.n_layers},
-          f"{cfg.name}: bodies {by_body}, expected {body} {cfg.n_layers} times")
+          f"flash_attention {attending} times (once a layer that attends) "
+          f"and no other kernel")
+    check(by_body == ({body: attending} if attending else {}),
+          f"{cfg.name}: bodies {by_body}, expected {body} {attending} times")
     check(by_window == _windows(cfg),
           f"{cfg.name}: launches by window {by_window}, expected "
           f"{_windows(cfg)}")
@@ -1021,8 +1242,24 @@ def _serve_family(seed: int, run: dict) -> int:
     prof = _family_profile(model, prompts, max_seq)
     check(prof["prefill"]["dropped_pairs"] <= prof["prefill"]["routed_pairs"],
           "drop counts")
-    emit("families", arch=cfg.name, n_params=model.n_params,
-         n_layers=cfg.n_layers, full_depth_layers=full_layers,
+    finite = [prof[k]["logits_finite"] for k in prof]
+    overflow = None
+    if cfg.rwkv_chunked:
+        # the chunked WKV's f32 overflow, a fault of the reference's form
+        # (ROADMAP.md §3): its logits must stay non-finite, and for that
+        # cause alone, so that a change either way shows here
+        overflow = _wkv_overflow_probe(model, prompts, max_seq)
+        first = overflow["first_non_finite_layer"]
+        check(not prof["prefill"]["logits_finite"] and first is not None
+              and overflow["inputs_finite"] and not overflow["k_dec_finite"],
+              f"{cfg.name}: rwkv_chunked, expected non-finite logits from "
+              f"the chunked WKV's overflow (ROADMAP.md §3), got finite "
+              f"{finite}, probe {overflow}")
+    else:
+        check(all(finite), f"{cfg.name}: non-finite logits {finite}")
+    emit("families", arch=cfg.name, label=_family_label(run),
+         n_params=model.n_params, n_layers=cfg.n_layers,
+         attending_layers=attending, full_depth_layers=full_layers,
          batch=B, prompt_len=P,
          new_tokens=new, max_seq=max_seq, window=cfg.window
          if any(_windows(cfg)) else None, init_s=init_s,
@@ -1034,13 +1271,15 @@ def _serve_family(seed: int, run: dict) -> int:
          flash_launches_by_body=by_body,
          flash_launches_by_window={str(w): n for w, n in by_window.items()},
          peak_mem_gb=peak_gb, first_tokens=gen[0, :8].tolist(),
+         logits_finite=all(finite), wkv_overflow=overflow,
          profile=prof, host_s=time.perf_counter() - t0)
     del eng, model
     torch.cuda.empty_cache()
     return launched["flash_attention"]
 
 
-def _family_logits(cfg, seed: int, B: int, P: int, steps: int) -> None:
+def _family_logits(cfg, seed: int, B: int, P: int, steps: int,
+                   dtype=torch.bfloat16) -> None:
     """At full width and one pattern repeat. Prefill: the logits through
     the kernel against the same model with the plain version of attention
     in its place, computed with unrounded (f32) probabilities, the closer
@@ -1053,9 +1292,10 @@ def _family_logits(cfg, seed: int, B: int, P: int, steps: int) -> None:
     the fresh prefill through the bf16-probability plain version is
     printed beside it. Bound as in phase logits: 2e-2 x max|ref| + 1e-3,
     bf16's rounding (2**-8 relative, a few roundings deep) with room for
-    the sums' order."""
+    the sums' order. ``dtype``: the weights' and the compute's (cfg's
+    compute_dtype must name it)."""
     from repro_torch.models.zoo import build
-    model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    model = build(cfg, device="cuda", dtype=dtype, seed=seed)
     prompts = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (B, P))
     max_seq = P + steps
     plain32 = functools.partial(_plain, f32=True)
@@ -1075,6 +1315,7 @@ def _family_logits(cfg, seed: int, B: int, P: int, steps: int) -> None:
         check(bool(torch.isfinite(lg).all()), f"{cfg.name}: prefill logits")
         err, bound = _bound(lg_plain32, lg)
         emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+             dtype=str(dtype).replace("torch.", ""),
              window=cfg.window if any(_windows(cfg)) else None, prompt_len=P,
              check="prefill_kernel_vs_plain_f32_probs", max_abs_err=err,
              bound=bound, kernel_vs_plain=_bound(lg_plain, lg)[0],
@@ -1091,31 +1332,147 @@ def _family_logits(cfg, seed: int, B: int, P: int, steps: int) -> None:
                       f"{cfg.name}: decode logits")
                 err, bound = _bound(lg_full, lg_dec)
                 emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+                     dtype=str(dtype).replace("torch.", ""),
                      check="decode_vs_fresh_prefill", step=i,
                      position=P + i, max_abs_err=err, bound=bound,
                      decode_vs_fresh_prefill_plain=_bound(lg_full_plain,
                                                           lg_dec)[0])
-                check(err < bound, f"{cfg.name} decode step {i}: "
-                      f"{err} >= {bound}")
+                check(err < bound,
+                      f"{cfg.name} decode step {i}: {err} >= {bound}")
             gen.append(lg_dec.argmax(-1)[:, None])
     del model, cache
     torch.cuda.empty_cache()
 
 
+def _local_layer_check(cfg, seed: int, B: int, P: int, steps: int) -> None:
+    """recurrentgemma-9b's local attention layer alone, at full width and
+    bf16: MQA, head_dim 256, its window, the wgmma body the served model
+    runs. Held on the attention sublayer's output, before the residual
+    add, where the attention is the whole signal (at the model's random
+    init it moves the logits by less than one bf16 rounding). Prefill of
+    P positions, past the window: through the kernel against the plain
+    version with f32 probabilities. Then ``steps`` decode steps over the
+    rolled cache, each against a fresh prefill of the positions so far
+    through the kernel. Bound as in phase logits. The input is random
+    normal: the block's RMSNorm takes out its scale."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.zoo import build
+    block = next(b for blocks, _ in cfg.segments for b in blocks
+                 if b.startswith("local:"))
+    lcfg = cfg.scaled(compute_dtype="bfloat16", segments=(((block,), 1),))
+    model = build(lcfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    p = model["segments"][0]["b0"][0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    x = torch.randn(B, P + steps, lcfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def sublayer(T, cache=None, attn=None):
+        ctx = tf.Ctx(cfg=lcfg, mode="prefill",
+                     positions=torch.arange(T, device="cuda"))
+        if attn is None:
+            return tf.attn_sublayer(p, x[:, :T], "local", ctx, cache)
+        with model_attention(attn):
+            return tf.attn_sublayer(p, x[:, :T], "local", ctx, cache)
+
+    with torch.inference_mode():
+        cache = tf.block_cache(lcfg, block, B, P + steps, torch.float32,
+                               device="cuda")
+        zero_counts()
+        y = sublayer(P, cache)
+        by_body = {b: n for b, n in flash_attention.launches_by_body.items()
+                   if n}
+        check(by_body == {"wgmma": 1} and dict(
+            flash_attention.launches_by_window) == {lcfg.window: 1},
+              f"{cfg.name} local layer: bodies {by_body}, windows "
+              f"{dict(flash_attention.launches_by_window)}")
+        y_plain32 = sublayer(P, attn=functools.partial(_plain, f32=True))
+        check(bool(torch.isfinite(y).all()), f"{cfg.name}: local layer")
+        err, bound = _bound(y_plain32, y)
+        emit("family_logits", arch=cfg.name, layer=block, dtype="bfloat16",
+             window=lcfg.window, prompt_len=P,
+             check="local_layer_prefill_kernel_vs_plain_f32_probs",
+             max_abs_err=err, bound=bound,
+             kernel_vs_plain=_bound(sublayer(P, attn=_plain), y)[0])
+        check(err < bound, f"{cfg.name} local layer prefill: {err} >= "
+              f"{bound}")
+        errs, bounds = [], []
+        for i in range(steps):
+            pos = P + i
+            ctx = tf.Ctx(cfg=lcfg, mode="decode", cache_pos=pos,
+                         positions=torch.arange(pos, pos + 1, device="cuda"))
+            y_dec = tf.attn_sublayer(p, x[:, pos:pos + 1], "local", ctx,
+                                     cache)
+            err, bound = _bound(sublayer(pos + 1)[:, -1:], y_dec)
+            errs.append(err)
+            bounds.append(bound)
+        emit("family_logits", arch=cfg.name, layer=block, dtype="bfloat16",
+             check="local_layer_decode_vs_fresh_prefill",
+             positions=[P, P + steps - 1], max_abs_err=errs, bound=bounds)
+        check(all(e < b for e, b in zip(errs, bounds)),
+              f"{cfg.name} local layer decode: {errs} against {bounds}")
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+WKV_W0 = -5.0     # the decay bias of phase families' route check
+
+
+def _wkv_routes(cfg, seed: int, B: int, P: int) -> None:
+    """rwkv6-7b at full width and one layer: the prefill's logits and
+    recurrent states through the chunked WKV against the loop over time on
+    the same weights (the reference's two routes), bound as in phase
+    logits. The decay bias ``w0`` is set to WKV_W0, so that a chunk's
+    cumulative decay stays above the chunked form's e^-60 clamp: at the
+    reference's init (w0 = 0, decays near e^-1 a step) it falls below it
+    and the reference's chunked form itself leaves the loop behind
+    (ROADMAP.md, faults of the reference)."""
+    from repro_torch.models.zoo import build
+    prompts = np.random.default_rng(seed + 2).integers(0, cfg.vocab, (B, P))
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    got = {}
+    for chunked in (False, True):
+        model = build(cfg.scaled(rwkv_chunked=chunked), device="cuda",
+                      dtype=torch.bfloat16, seed=seed)
+        model.get_parameter("segments.0.b0.0.tm.w0").fill_(WKV_W0)
+        with torch.inference_mode():
+            got[chunked] = model.prefill(
+                {"tokens": toks}, model.init_cache(B, P, torch.float32))
+        del model
+    (lg, cache), (lg_c, cache_c) = got[False], got[True]
+    err, bound = _bound(lg, lg_c)
+    S, S_c = (c["segments"][0]["b0"]["S"] for c in (cache, cache_c))
+    s_err, s_bound = _bound(S, S_c)
+    emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+         prompt_len=P, check="prefill_wkv_chunked_vs_scan", w0=WKV_W0,
+         max_abs_err=err, bound=bound, state_max_abs_err=s_err,
+         state_bound=s_bound)
+    check(bool(torch.isfinite(lg_c).all()) and err < bound and
+          s_err < s_bound, f"{cfg.name}: chunked WKV vs the loop: logits "
+          f"{err} (bound {bound}), state {s_err} (bound {s_bound})")
+    torch.cuda.empty_cache()
+
+
 def phase_families(seed: int) -> dict:
-    """The attention block families served at full width: gemma3-12b and
-    deepseek-moe-16b and starcoder2-15b at full depth, mixtral-8x22b on 2
-    of its 56 layers; then the one-repeat logit checks (gemma3-12b at 6
-    layers with a prompt past its window, deepseek-moe-16b at a dense and
-    a MoE layer with capacity for every pair, so that decode and prefill
-    drop nothing). Returns the flash launches of each main path and each
-    family's host seconds."""
+    """The block families served at full width: gemma3-12b,
+    deepseek-moe-16b, starcoder2-15b, minicpm3-4b (MLA),
+    recurrentgemma-9b (RG-LRU and local attention) and rwkv6-7b (twice:
+    the loop over time, then the chunked WKV) at full depth,
+    mixtral-8x22b on 2 of its 56 layers; then the one-repeat logit checks
+    (gemma3-12b at 6 layers with a prompt past its window,
+    deepseek-moe-16b at a dense and a MoE layer with capacity for every
+    pair, so that decode and prefill drop nothing; minicpm3-4b at one
+    layer; recurrentgemma-9b at one pattern of 3 layers with a prompt past
+    its window, at f32, and its local layer alone at bf16; rwkv6-7b at one
+    layer, and its two WKV routes against each other). Returns the flash launches of each main path and each family's
+    host seconds."""
     import repro_torch.configs as configs
     launches, host_s = {}, {}
     for run in FAMILY_RUNS:
         t0 = time.perf_counter()
-        launches[run["arch"]] = _serve_family(seed, run)
-        host_s[run["arch"]] = time.perf_counter() - t0
+        label = _family_label(run)
+        launches[label] = _serve_family(seed, run)
+        host_s[label] = time.perf_counter() - t0
     t0 = time.perf_counter()
     gemma = configs.get("gemma3_12b")
     (blocks, _), = gemma.segments
@@ -1128,6 +1485,22 @@ def phase_families(seed: int) -> dict:
         capacity_factor=deepseek.n_experts / deepseek.top_k,
         segments=((("full:swiglu",), 1), (("full:moe",), 1))),
         seed, B=2, P=512, steps=8)
+    minicpm = configs.get("minicpm3_4b")
+    _family_logits(minicpm.scaled(compute_dtype="bfloat16",
+                                  segments=((("mla:swiglu",), 1),)),
+                   seed, B=2, P=512, steps=8)
+    # recurrentgemma-9b: the pattern at f32 (its local layer's flash in
+    # `simt`: one bf16 pattern amplifies rounding past the bound, PERF.md),
+    # and the local layer alone at bf16 (in `wgmma`, as served)
+    rg = configs.get("recurrentgemma_9b")
+    _family_logits(rg.scaled(compute_dtype="float32",
+                             segments=((rg.segments[0][0], 1),)),
+                   seed, B=2, P=rg.window + 52, steps=8, dtype=torch.float32)
+    _local_layer_check(rg, seed, B=2, P=rg.window + 52, steps=8)
+    rwkv = configs.get("rwkv6_7b").scaled(compute_dtype="bfloat16",
+                                          segments=((("rwkv:none",), 1),))
+    _family_logits(rwkv, seed, B=2, P=512, steps=8)
+    _wkv_routes(rwkv, seed, B=2, P=512)
     host_s["logit_checks"] = time.perf_counter() - t0
     emit("families", host_s=host_s)
     return launches
@@ -2661,7 +3034,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t0 = time.perf_counter()
     phase_build()
-    serve_err, wide_err, train_err, window_err = phase_kernels(args.seed)
+    serve_err, wide_err, train_err, window_err, family_err = \
+        phase_kernels(args.seed)
     filter_err = phase_filter_kernels(args.seed)
     dequant_err = phase_dequant_kernels(args.seed)
     bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
@@ -2672,6 +3046,7 @@ def main(argv=None) -> int:
     phase_logits(args.seed, gen)
     row, wide = phase_times(args.seed)
     window_row = phase_window_times(args.seed)
+    family_rows = phase_family_times(args.seed)
     t1 = time.perf_counter()
     family_launches = phase_families(args.seed)
     families_s = time.perf_counter() - t1
@@ -2722,6 +3097,20 @@ def main(argv=None) -> int:
                               max_abs_err=window_err["wgmma"],
                               mma_max_abs_err=window_err["mma"],
                               **window_row),
+             mla_d96=dict(body="wgmma", arch="minicpm3-4b", dv=MLA_DV,
+                          shape=[MLA_CASE[k] for k in "B H Hkv S D".split()],
+                          launches=family_launches["minicpm3_4b"],
+                          max_abs_err=family_err["mla"]["wgmma"],
+                          mma_max_abs_err=family_err["mla"]["mma"],
+                          **family_rows["mla"]),
+             rg_local=dict(body="wgmma", arch="recurrentgemma-9b",
+                           window=RG_LOCAL["window"],
+                           shape=[RG_LOCAL[k] for k in
+                                  "B H Hkv S D".split()],
+                           launches=family_launches["recurrentgemma_9b"],
+                           max_abs_err=family_err["rg_local"]["wgmma"],
+                           mma_max_abs_err=family_err["rg_local"]["mma"],
+                           **family_rows["rg_local"]),
              train=dict(body="simt", dtype="float32",
                         shape=[TRAIN_CASE[k] for k in "B H Hkv S D".split()],
                         launches_per_step=2 * train["n_layers"],

@@ -19,12 +19,10 @@ ARCHS = (
 )
 
 PORTED = ("llama3_2_1b", "gemma3_12b", "starcoder2_15b", "chameleon_34b",
-          "deepseek_moe_16b", "mixtral_8x22b")
+          "deepseek_moe_16b", "mixtral_8x22b", "minicpm3_4b",
+          "recurrentgemma_9b", "rwkv6_7b")
 # the ROADMAP.md item that ports each of the others
 _LATER = {
-    "minicpm3_4b": "MLA + minicpm3-4b",
-    "recurrentgemma_9b": "RG-LRU + recurrentgemma-9b",
-    "rwkv6_7b": "RWKV-6 + rwkv6-7b",
     "whisper_base": "enc-dec + whisper-base",
 }
 

@@ -28,6 +28,7 @@ from enum import IntEnum
 import numpy as np
 
 from . import pages as pages_mod
+from .encodings.base import is_bf16_blob
 from .footer import (MAGIC, FooterBuilder, FooterView, PageType, Sec,
                      notify_footer_rewrite, read_footer)
 from .merkle import MerkleTree, page_hash
@@ -86,9 +87,14 @@ def _erases(ptype: int, before: bytes, after: bytes, positions: np.ndarray,
         return compact_ok    # compact rule physically removed the rows
     if was_compacted or len(dec) != phys_rows:
         return False         # compacted pages must stay compacted
+    if is_bf16_blob(before):
+        # bf16 bits: -0.0 (0x8000) compares equal to 0, as in the reference
+        dec, orig = (np.asarray(pages_mod.decode_page(ptype, b)) & 0x7FFF
+                     for b in (after, before))
+    else:
+        orig = np.asarray(pages_mod.decode_page(ptype, before))
     if np.any(dec[positions] != 0):
         return False         # the encoding could not overwrite the value
-    orig = np.asarray(pages_mod.decode_page(ptype, before))
     return not np.any(orig[positions] == 0)
 
 

@@ -13,6 +13,11 @@ Parquet/ORC lack.
 Selection (``cascade.encode_array``) is sampling-based (BtrBlocks-style) with a
 Nimble-style weighted objective over {size, encode time, decode time} and a
 bounded recursion depth.
+
+A ``bfloat16`` column (dtype code 12) reads back as its uint16 bit patterns,
+the only exact NumPy form without ``ml_dtypes``; predicates see it widened
+to float32 (``bf16_to_f32``); the writer takes the bits (see
+``BF16_STORAGE``).
 """
 
 from __future__ import annotations
@@ -31,26 +36,52 @@ _DTYPE_CODES: dict[str, int] = {
     "int8": 0, "int16": 1, "int32": 2, "int64": 3,
     "uint8": 4, "uint16": 5, "uint32": 6, "uint64": 7,
     "float16": 8, "float32": 9, "float64": 10, "bool": 11,
-    "bfloat16": 12,  # stored as uint16 payload; jax/ml_dtypes view on decode
+    "bfloat16": 12,  # stored as uint16 payload
 }
 _CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 
+# The writer encodes bf16 bits as ``BF16_STORAGE``, a two-byte void dtype:
+# like ``ml_dtypes.bfloat16`` (kind "V") only the ``trivial`` encoding
+# applies to it, and its code is 12, so pages are byte-identical to the
+# reference's.
+BF16_CODE = 12
+BF16_STORAGE = np.dtype("V2")
+
 
 def dtype_code(dt: np.dtype) -> int:
-    name = np.dtype(dt).name
-    if name not in _DTYPE_CODES:
-        raise TypeError(f"unsupported column dtype {name}")
-    return _DTYPE_CODES[name]
+    dt = np.dtype(dt)
+    if dt == BF16_STORAGE:
+        return BF16_CODE
+    if dt.name not in _DTYPE_CODES:
+        raise TypeError(f"unsupported column dtype {dt.name}")
+    return _DTYPE_CODES[dt.name]
 
 
 def code_dtype(code: int) -> np.dtype:
-    name = _CODE_DTYPES[code]
-    if name == "bfloat16":
-        raise TypeError(
-            "dtype code 12 (bfloat16) has no NumPy dtype in this package "
-            "(it does not use ml_dtypes): store bf16 values as "
-            "QuantMode.BF16, whose storage dtype is uint16")
-    return np.dtype(name)
+    """The NumPy dtype a page of dtype ``code`` decodes to; bfloat16 (12)
+    decodes to its uint16 bit patterns."""
+    if code == BF16_CODE:
+        return np.dtype(np.uint16)
+    return np.dtype(_CODE_DTYPES[code])
+
+
+def code_name(code: int) -> str:
+    """The column dtype name of ``code`` as a ``ColumnSpec`` takes it
+    (``"bfloat16"`` for 12)."""
+    return _CODE_DTYPES[code]
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns (uint16) -> float32 values, exact."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
+
+def is_bf16_blob(blob: bytes | memoryview) -> bool:
+    """Does a scalar page blob hold bfloat16 values? (Only the trivial
+    encoding applies to them, so its header's dtype code says.)"""
+    eid, header, _, _ = unframe(blob)
+    return REGISTRY[eid].name == "trivial" and header[0] == BF16_CODE
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 from . import sparse_delta
 from .encodings import (EncodeContext, decode_blob, decode_strings,
                         encode_array, encode_strings, mask_blob)
+from .encodings.base import BF16_STORAGE, is_bf16_blob
 from .encodings.numeric import _cat, _split2
 from .footer import PageType
 
@@ -153,6 +154,8 @@ def rebuild_page(ptype: int, payload: bytes, positions: np.ndarray,
             arr = arr[keep]
         else:
             arr[positions] = 0
+        if is_bf16_blob(payload):    # the bits decode as uint16
+            arr = arr.view(BF16_STORAGE)
         return build_scalar_page(arr, ctx)
     if ptype == PageType.LIST:
         rows = decode_list_page(payload)

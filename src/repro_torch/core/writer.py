@@ -48,7 +48,7 @@ import numpy as np
 from ..obs import trace as _trace
 from . import pages
 from .encodings import EncodeContext
-from .encodings.base import dtype_code
+from .encodings.base import BF16_STORAGE, bf16_to_f32, dtype_code
 from .footer import (ColKind, FooterBuilder, FORMAT_V0, FORMAT_V2,
                      FORMAT_VERSION, MAGIC, PageType, Sec, name_hash,
                      notify_footer_rewrite)
@@ -76,6 +76,10 @@ class ColumnSpec:
 
     @property
     def value_dtype(self) -> np.dtype:
+        """The column's dtype; ``BF16_STORAGE`` for ``"bfloat16"`` (whose
+        table form is its uint16 bit patterns, ``as_bf16_bits``)."""
+        if self.dtype == "bfloat16":
+            return BF16_STORAGE
         if self.kind == ColKind.LIST:
             return np.dtype(self.dtype[5:-1])
         if self.kind in (ColKind.STRING,):
@@ -83,6 +87,16 @@ class ColumnSpec:
         if self.kind == ColKind.MEDIA_REF:
             return np.dtype(np.uint64)
         return np.dtype(self.dtype)
+
+
+def as_bf16_bits(data) -> np.ndarray:
+    """A bfloat16 column's values: its uint16 bit patterns (what a read
+    hands back), checked."""
+    arr = np.asarray(data)
+    if arr.dtype != np.uint16:
+        raise TypeError(f"a bfloat16 column takes its uint16 bit patterns, "
+                        f"not {arr.dtype}")
+    return arr
 
 
 # floor for the *derived* page_rows default (rows_per_group / 8): below
@@ -218,7 +232,8 @@ class BullionWriter:
         for spec in self.schema:
             data = table[spec.name]
             if spec.kind == ColKind.SCALAR or spec.kind == ColKind.MEDIA_REF:
-                data = np.asarray(data)
+                data = as_bf16_bits(data) if spec.dtype == "bfloat16" \
+                    else np.asarray(data)
                 sizes.add(len(data))
                 self._buffers[spec.name].append(data)
             else:
@@ -542,6 +557,9 @@ class BullionWriter:
             vals = np.asarray(dequantize(stored, spec.quant))
         else:
             vals = np.asarray(chunk)
+        if vals.dtype == BF16_STORAGE:
+            # kind "V", as the reference's bf16: its NaNs are keyed too
+            return np.unique(canonical_u64(bf16_to_f32(vals.view(np.uint16))))
         if vals.dtype.kind == "f":
             vals = vals[~np.isnan(vals)]
         return np.unique(canonical_u64(vals))
@@ -569,7 +587,11 @@ class BullionWriter:
         or None)."""
         if spec.kind == ColKind.SCALAR:
             arr = np.asarray(chunk)
-            if spec.quant.mode != QuantMode.NONE:
+            if spec.dtype == "bfloat16":
+                # only ``trivial`` applies and zone maps stay empty, as for
+                # the reference's kind-"V" bf16 values
+                arr = chunk = arr.view(BF16_STORAGE)
+            elif spec.quant.mode != QuantMode.NONE:
                 arr = quantize(arr, spec.quant)
             rec = self._stats_for(spec, chunk, arr)
             blob = pages.build_scalar_page(arr, self._ctx_for(rec, arr))

@@ -306,6 +306,16 @@ def _f32_shrink(lo: float, hi: float) -> tuple[np.float32, np.float32]:
     return lo32, hi32
 
 
+def _bf16_widened(fv, tbl: dict) -> dict:
+    """The table a predicate reads: bfloat16 columns, decoded as their
+    uint16 bits, widened to float32 (exact)."""
+    from ..core.encodings.base import BF16_CODE, bf16_to_f32
+    codes = fv.arr(Sec.COL_DTYPE, np.uint8)
+    return {name: bf16_to_f32(v)
+            if int(codes[fv.column_index(name)]) == BF16_CODE else v
+            for name, v in tbl.items()}
+
+
 def eval_mask(pred: Predicate, tbl: dict, use_kernel: Optional[bool],
               device=None) -> np.ndarray:
     """Predicate -> row mask; the range-filter kernel when the predicate
@@ -483,7 +493,8 @@ def _execute_group_once(reader: "BullionReader", group: int, *,
                            device=device)
         sp = _trace.span("exec.filter", cat="exec", group=group)
         with sp:
-            mask = eval_mask(predicate, tbl, use_kernel, device)
+            mask = eval_mask(predicate, _bf16_widened(fv, tbl), use_kernel,
+                             device)
             if sp.enabled:
                 sp.set(rows_in=int(len(mask)), rows_out=int(mask.sum()))
     if rows is not None:

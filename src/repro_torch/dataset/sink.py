@@ -35,7 +35,7 @@ from typing import TYPE_CHECKING, Optional, Union
 
 import numpy as np
 
-from ..core.encodings.base import code_dtype
+from ..core.encodings.base import code_name
 from ..core.encodings.cascade import advise_candidates
 from ..core.footer import ColKind, FooterView, PageType, Sec
 from ..core.quantization import QUANT_DTYPE, QuantMode, QuantSpec
@@ -97,7 +97,7 @@ def output_schema(source, names, dequantize: bool) -> list[ColumnSpec]:
         elif kind == ColKind.MEDIA_REF:
             specs.append(ColumnSpec(name, "media_ref"))
         elif kind == ColKind.LIST:
-            elem = code_dtype(int(logical[c])).name
+            elem = code_name(int(logical[c]))
             sd = any(_uses_sparse_delta(source.footer(s), c)
                      for s in range(source.n_shards))
             specs.append(ColumnSpec(name, f"list<{elem}>", sparse_delta=sd))
@@ -105,9 +105,9 @@ def output_schema(source, names, dequantize: bool) -> list[ColumnSpec]:
             q = QuantSpec.from_record(quant[c])
             if dequantize or q.mode == QuantMode.NONE:
                 specs.append(ColumnSpec(
-                    name, code_dtype(int(logical[c])).name, quant=q))
+                    name, code_name(int(logical[c])), quant=q))
             else:
-                specs.append(ColumnSpec(name, code_dtype(int(storage[c])).name))
+                specs.append(ColumnSpec(name, code_name(int(storage[c]))))
     return specs
 
 

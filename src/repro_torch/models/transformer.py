@@ -3,20 +3,23 @@
 Depth is segments of repeating block patterns. The reference stacks each
 block's parameters over the repeat count and runs ``jax.lax.scan``; here the
 layers are a ``ModuleList`` walked by a Python loop. Caches keep the
-reference's stacked layout, ``[layers, B, S, Hkv, D]`` per block, and are
-updated in place (a decode step writes one slot instead of copying the
-cache).
+reference's stacked layout, a leading ``[layers, ...]`` axis on each of a
+block's cache tensors, and are updated in place (a decode step writes one
+slot instead of copying the cache).
 
-Ported: ``full``/``global`` attention and the windowed ``window``/``local``
-attention, with ``swiglu``, ``gelu`` or ``moe`` MLPs and RMSNorm or
-LayerNorm, in ``prefill``, ``decode`` and ``train`` modes. A windowed
-block's cache is a rolling buffer of ``min(window, seq_len)`` slots: slot
-``pos % S`` holds position ``pos`` (``_rolling_pos``). Prefill and training
-attention run the flash-attention kernel with the block's window (training
-through its autograd Function, with a plain backward); decode attention
-(one query over the cache, with ``kv_valid``) stays plain PyTorch, as the
-reference leaves it to XLA outside any kernel. Training rematerialises each
-layer, as the reference's ``jax.checkpoint`` of its scan body does.
+Ported: every decoder block kind. ``full``/``global`` attention and the
+windowed ``window``/``local`` attention, with ``swiglu``, ``gelu`` or
+``moe`` MLPs and RMSNorm or LayerNorm; ``mla`` (``models/mla.py``);
+``rglru`` (``models/rglru.py``, its parameters under ``"rec"``); ``rwkv``
+(``models/rwkv6.py``, self-contained, mlp kind ``none``); in ``prefill``,
+``decode`` and ``train`` modes. A windowed block's cache is a rolling buffer
+of ``min(window, seq_len)`` slots: slot ``pos % S`` holds position ``pos``
+(``_rolling_pos``). Prefill and training attention run the flash-attention
+kernel with the block's window (training through its autograd Function,
+with a plain backward); decode attention (one query over the cache, with
+``kv_valid``) stays plain PyTorch, as the reference leaves it to XLA
+outside any kernel. Training rematerialises each layer, as the reference's
+``jax.checkpoint`` of its scan body does.
 """
 
 from __future__ import annotations
@@ -29,29 +32,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention
+from . import mla as mla_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .base import P
 from .config import ModelConfig
 from .layers import (attention_decl, attn_out, attn_qkv, dot_attention,
                      gelu_mlp, gelu_mlp_decl, layernorm, layernorm_decl,
                      rmsnorm, rmsnorm_decl, swiglu, swiglu_decl)
 
-_LATER = {
-    "mla": "the MLA + minicpm3-4b item of ROADMAP.md",
-    "rglru": "the RG-LRU + recurrentgemma-9b item of ROADMAP.md",
-    "rwkv": "the RWKV-6 + rwkv6-7b item of ROADMAP.md",
-}
 ATTN_KINDS = ("full", "window", "local", "global")
 WINDOWED = ("window", "local")
+# the block kinds whose prefill attends (one flash launch a layer)
+ATTENDING = ATTN_KINDS + ("mla",)
 MLP_KINDS = ("swiglu", "gelu", "moe")
 
 
 def _check_block(block: str) -> tuple[str, str]:
     attn_kind, mlp_kind = block.split(":")
-    if attn_kind in _LATER:
-        raise NotImplementedError(
-            f"block {block!r} is not ported yet: {_LATER[attn_kind]}")
-    if attn_kind not in ATTN_KINDS or mlp_kind not in MLP_KINDS:
+    if attn_kind == "rwkv":
+        ok = mlp_kind == "none"      # self-contained (its own channel mix)
+    else:
+        ok = (attn_kind in ATTENDING + ("rglru",)
+              and mlp_kind in MLP_KINDS + ("none",))
+    if not ok:
         raise ValueError(f"unknown block {block!r}")
     return attn_kind, mlp_kind
 
@@ -71,19 +76,25 @@ def _norm(cfg: ModelConfig, p, x):
 
 
 def block_decl(cfg: ModelConfig, block: str) -> dict:
-    _, mlp_kind = _check_block(block)
-    decl = {
-        "ln_attn": _norm_decl(cfg),
-        "attn": attention_decl(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim, qk_norm=cfg.qk_norm,
-                               fused=cfg.fused_qkv),
-        "ln_mlp": _norm_decl(cfg),
-    }
+    attn_kind, mlp_kind = _check_block(block)
+    if attn_kind == "rwkv":
+        return rwkv_mod.rwkv_decl(cfg)
+    decl: dict = {}
+    if attn_kind == "rglru":
+        decl["rec"] = rglru_mod.rglru_decl(cfg)
+    else:
+        decl["ln_attn"] = _norm_decl(cfg)
+        decl["attn"] = mla_mod.mla_decl(cfg) if attn_kind == "mla" \
+            else attention_decl(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, qk_norm=cfg.qk_norm,
+                                fused=cfg.fused_qkv)
+    if mlp_kind != "none":
+        decl["ln_mlp"] = _norm_decl(cfg)
     if mlp_kind == "moe":
         decl["moe"] = moe_mod.moe_decl(cfg)
     elif mlp_kind == "gelu":
         decl["mlp"] = gelu_mlp_decl(cfg.d_model, cfg.d_ff)
-    else:
+    elif mlp_kind == "swiglu":
         decl["mlp"] = swiglu_decl(cfg.d_model, cfg.d_ff)
     return decl
 
@@ -121,31 +132,54 @@ def cache_slots(cfg: ModelConfig, attn_kind: str, seq_len: int) -> int:
     return min(cfg.window, seq_len) if attn_kind in WINDOWED else seq_len
 
 
+def block_cache(cfg: ModelConfig, block: str, batch: int, seq_len: int,
+                dtype=torch.bfloat16, device=None) -> dict:
+    """One layer's cache, zeros: attention ``k``/``v`` [B, slots, Hkv, D]
+    and MLA ``ckv``/``kr`` in ``dtype``; the RWKV (``S``, ``tm_prev``,
+    ``cm_prev``) and RG-LRU (``h``, ``conv``) states in f32 whatever
+    ``dtype`` is, as in the reference."""
+    attn_kind, _ = _check_block(block)
+    if attn_kind == "mla":
+        return mla_mod.mla_cache_decl(cfg, batch, seq_len, dtype, device)
+    if attn_kind == "rwkv":
+        return rwkv_mod.rwkv_cache_decl(cfg, batch, device)
+    if attn_kind == "rglru":
+        return rglru_mod.rglru_cache_decl(cfg, batch, device)
+    shape = (batch, cache_slots(cfg, attn_kind, seq_len), cfg.n_kv_heads,
+             cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device)
+            for n in ("k", "v")}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """``{"pos": 0, "segments": [{"b{j}": {"k", "v"}}]}`` with k, v of shape
-    ``[repeat, batch, slots, Hkv, D]`` (``cache_slots``), zeros."""
+    """``{"pos": 0, "segments": [{"b{j}": {name: tensor}}]}``, each of a
+    block's cache tensors (``block_cache``) stacked over the segment's
+    repeats: ``[repeat, ...]``."""
     segs = []
     for blocks, rep in cfg.segments:
         seg = {}
         for j, b in enumerate(blocks):
-            attn_kind, _ = _check_block(b)
-            shape = (rep, batch, cache_slots(cfg, attn_kind, seq_len),
-                     cfg.n_kv_heads, cfg.head_dim)
-            seg[f"b{j}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                            "v": torch.zeros(shape, dtype=dtype, device=device)}
+            one = block_cache(cfg, b, batch, seq_len, dtype, device)
+            seg[f"b{j}"] = {n: t[None].repeat((rep,) + (1,) * t.dim())
+                            for n, t in one.items()}
         segs.append(seg)
     return {"pos": 0, "segments": segs}
 
 
 def cache_capacity(cfg: ModelConfig, cache: dict) -> Optional[int]:
-    """Positions the cache can hold: the slots of its full/global caches,
-    or None (no limit) where every attention block is windowed, since
-    rolling buffers never fill."""
-    caps = [cache["segments"][si][f"b{j}"]["k"].shape[2]
-            for si, (blocks, _) in enumerate(cfg.segments)
-            for j, b in enumerate(blocks)
-            if _check_block(b)[0] not in WINDOWED]
+    """Positions the cache can hold: the slots of its full/global and MLA
+    caches, or None (no limit) where every such block is windowed or
+    recurrent, since rolling buffers and recurrent states never fill."""
+    caps = []
+    for si, (blocks, _) in enumerate(cfg.segments):
+        for j, b in enumerate(blocks):
+            kind = _check_block(b)[0]
+            c = cache["segments"][si][f"b{j}"]
+            if kind in ("full", "global"):
+                caps.append(c["k"].shape[2])
+            elif kind == "mla":
+                caps.append(c["ckv"].shape[2])
     return min(caps) if caps else None
 
 
@@ -169,7 +203,10 @@ def _rolling_pos(pos: int, W: int, device=None) -> torch.Tensor:
     return pos - torch.remainder(pos - slots, W)
 
 
-def _attn_block(p, x, kind: str, ctx: Ctx, cache):
+def attn_sublayer(p, x, kind: str, ctx: Ctx, cache):
+    """The attention of a full/window/local/global block: x [B, T, d] ->
+    its output [B, T, d], before the residual add. ``cache`` is filled
+    (prefill) or extended (decode) in place."""
     cfg = ctx.cfg
     windowed = kind in WINDOWED
     window = cfg.window if windowed else 0
@@ -205,18 +242,32 @@ def _attn_block(p, x, kind: str, ctx: Ctx, cache):
                 else:
                     c[:, :T] = new.to(c.dtype)
                     c[:, T:] = 0
-    return x + attn_out(p["attn"], o)
+    return attn_out(p["attn"], o)
 
 
 def apply_block(p, x, block: str, ctx: Ctx, cache=None):
-    """One block; ``cache`` ({"k", "v"} of this layer) is filled (prefill)
-    or extended (decode) in place. Returns (x, aux): the MoE block's
-    load-balancing loss (a 0-d f32 tensor), 0.0 for the others."""
+    """One block; ``cache`` (this layer's) is filled (prefill) or extended
+    (decode) in place. Returns (x, aux): the MoE block's load-balancing
+    loss (a 0-d f32 tensor), 0.0 for the others."""
+    cfg = ctx.cfg
     attn_kind, mlp_kind = block.split(":")
-    x = _attn_block(p, x, attn_kind, ctx, cache)
-    xn = _norm(ctx.cfg, p["ln_mlp"], x)
+    if attn_kind == "rwkv":
+        return rwkv_mod.rwkv_block(
+            p, x, cache, cfg=cfg,
+            use_chunked=cfg.rwkv_chunked and ctx.mode != "decode"), 0.0
+    if attn_kind == "mla":
+        x = x + mla_mod.mla_attention(p["attn"], _norm(cfg, p["ln_attn"], x),
+                                      ctx.positions, cfg, cache=cache,
+                                      cache_pos=ctx.cache_pos)
+    elif attn_kind == "rglru":
+        x = rglru_mod.rglru_block(p["rec"], x, cache, cfg=cfg)
+    else:
+        x = x + attn_sublayer(p, x, attn_kind, ctx, cache)
+    if mlp_kind == "none":
+        return x, 0.0
+    xn = _norm(cfg, p["ln_mlp"], x)
     if mlp_kind == "moe":
-        y, aux = moe_mod.moe_block(p["moe"], xn, ctx.cfg)
+        y, aux = moe_mod.moe_block(p["moe"], xn, cfg)
         return x + y, aux
     mlp = gelu_mlp if mlp_kind == "gelu" else swiglu
     return x + mlp(p["mlp"], xn), 0.0
@@ -266,7 +317,7 @@ def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
             for j, block in enumerate(blocks):
                 c = None
                 if seg_cache is not None:
-                    c = {n: seg_cache[f"b{j}"][n][i] for n in ("k", "v")}
+                    c = {n: t[i] for n, t in seg_cache[f"b{j}"].items()}
                 p = seg_params[f"b{j}"][i]
                 if ctx.mode == "train":
                     x, aux = checkpoint(apply_block, p, x, block, ctx,

@@ -286,3 +286,49 @@ def test_delete_where_locates_on_the_dataset_device(tmp_path, written,
     core.delete_where(port_path, pred, device="cpu")
     assert groups > 0 and len(calls) == groups
     assert all(shape[0] == 2 and dev == "cpu" for shape, dev in calls)
+
+
+# -- bfloat16 columns ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("levels", [(2, 2), (1, 1), (2, 1), (1, 2)])
+def test_bf16_deletes_match_reference(tmp_path, levels):
+    """Deletes from a file with a bfloat16 column (read as its uint16 bits):
+    rows 1, 7, 2000, then rows holding +0, -0 and NaN (a stored 0 is no
+    erasure, so L2 relocates those pages compacted, as the reference does
+    with its bf16 values). After each step: the files byte-identical,
+    ``DeleteStats`` equal, the visible rows and bits equal to the
+    reference's read of its own file."""
+    from test_torch_storage import write_bf16_pair
+    port, ref, _ = write_bf16_pair(tmp_path)
+    for level, rows in zip(levels, ([1, 7, 2000], [5, 9, 11, 12, 3000])):
+        got = core.delete_rows(port, np.asarray(rows),
+                               core.Compliance(level))
+        want = ref_core.delete_rows(ref, np.asarray(rows),
+                                    ref_core.Compliance(level))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.rows_deleted == len(rows)
+        assert _bytes(port) == _bytes(ref), (level, rows)
+        with dataset(port, device="cpu") as ds, \
+                ref_dataset.dataset(ref) as rds:
+            mine, theirs = ds.to_table(), rds.to_table()
+            assert np.array_equal(ds.row_ids(), rds.row_ids())
+        assert mine["x"].dtype == np.uint16
+        assert np.array_equal(mine["x"], theirs["x"].view(np.uint16))
+        assert np.array_equal(mine["id"], theirs["id"])
+    assert len(mine["id"]) == 4096 - 8
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_bf16_delete_where_matches_reference(tmp_path, level):
+    """``delete_where(C("x") > 0)`` on the bf16 file: the predicate reads
+    the widened bits, the same rows go, the files stay byte-identical."""
+    from test_torch_storage import write_bf16_pair
+    port, ref, _ = write_bf16_pair(tmp_path)
+    got = core.delete_where(port, scan.C("x") > 0, core.Compliance(level),
+                            device="cpu")
+    want = ref_core.delete_where(ref, ref_scan.C("x") > 0,
+                                 ref_core.Compliance(level))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.rows_deleted > 1000
+    assert _bytes(port) == _bytes(ref)

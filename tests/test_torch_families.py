@@ -214,9 +214,18 @@ def test_prefill_and_decode_match_jax(arch):
     """Prefill logits, 8 teacher-forced decode steps and every cache (the
     rolling ones included) against the reference; for the windowed
     configs the prompt (12) is past the smoke window (8)."""
-    jm, params, tm = _pair(arch)
+    check_prefill_and_decode(arch)
+
+
+def check_prefill_and_decode(arch, P_=12, **kw):
+    """Prefill of P_ tokens, 8 teacher-forced decode steps and every
+    tensor of every layer's cache against the reference (config fields
+    ``kw`` set in both), the logits within ``_tol`` of their scale, each
+    cache tensor within ``_tol`` of its own."""
+    jm, params, tm = _pair(arch, **kw)
     cfg = tm.cfg
-    B, P_, steps, max_seq = 2, 12, 8, 24
+    B, steps = 2, 8
+    max_seq = P_ + 12
     tok = _tokens(cfg.vocab, (B, P_ + steps), 8)
     jcache = jm.init_cache(B, max_seq, dtype=jnp.float32)
     tcache = tm.init_cache(B, max_seq, dtype=torch.float32)
@@ -237,11 +246,14 @@ def test_prefill_and_decode_match_jax(arch):
     assert tcache["pos"] == int(jcache["pos"]) == P_ + steps
     for si, seg in enumerate(jcache["segments"]):
         for bj, c in seg.items():
-            for n in ("k", "v"):
+            assert set(tcache["segments"][si][bj]) == set(c), (si, bj)
+            for n in c:
                 ref_c = np.asarray(c[n])
                 got = tcache["segments"][si][bj][n]
                 assert tuple(got.shape) == ref_c.shape, (si, bj, n)
-                assert _err(got, ref_c) < _tol(float(np.abs(ref_c).max()))
+                assert got.dtype == torch.float32, (si, bj, n)
+                assert _err(got, ref_c) < _tol(
+                    float(np.abs(ref_c).max())), (si, bj, n)
 
 
 def _full_logits(tm, tok):
@@ -306,6 +318,10 @@ def test_windowed_cache_rolls():
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_decode_matches_full_forward(arch):
     """Mirror of tests/test_arch_smoke.py's, on the port alone."""
+    check_decode_matches_full_forward(arch)
+
+
+def check_decode_matches_full_forward(arch):
     _, _, tm = _pair(arch, capacity_factor=16.0)
     B, S = 2, 12
     tok = torch.tensor(_tokens(tm.cfg.vocab, (B, S + 2), 10)).long()
@@ -380,6 +396,10 @@ def test_cache_slots_and_capacity():
 def test_generate_matches_jax_engine(arch):
     """``ServeEngine.generate`` with rolling caches and MoE blocks: greedy
     tokens equal to the reference engine's, past the window."""
+    check_generate(arch)
+
+
+def check_generate(arch):
     jm, params, tm = _pair(arch, capacity_factor=16.0)
     prompts = _tokens(tm.cfg.vocab, (2, 10), 11)
     ref = JaxServeEngine(jm, jax.tree.map(jnp.asarray, params),
@@ -413,6 +433,10 @@ def _batch(vocab, seed=1, B=2, S=16):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_loss_matches_reference(arch):
+    check_loss(arch)
+
+
+def check_loss(arch):
     jm, params, tm = _pair(arch)
     batch = _batch(tm.cfg.vocab)
     want = float(jm.loss(params, {"tokens": jnp.asarray(batch["tokens"])}))
@@ -456,6 +480,10 @@ def test_every_gradient_matches_reference(arch):
     loss and ``torch.autograd.grad``, at test_torch_train.py's tolerances:
     each leaf within GRAD_TOL, or twice what one ulp of the reference's
     own parameters does to its gradient where that is larger."""
+    check_gradients(arch)
+
+
+def check_gradients(arch):
     jm, params, tm = _pair(arch)
     batch = {"tokens": jnp.asarray(_batch(tm.cfg.vocab, seed=2)["tokens"])}
     vg = jax.value_and_grad(jm.loss)

@@ -215,6 +215,47 @@ def test_windowed_model_prefill_matches_plain(cuda, arch, head_dim, body):
     assert (got.float() - want.float()).abs().max().item() < bound
 
 
+@pytest.mark.parametrize("arch,attending", [("minicpm3_4b", 2),
+                                             ("recurrentgemma_9b", 1)])
+def test_new_family_prefill_matches_plain(cuda, arch, attending):
+    """A smoke-size MLA or RG-LRU model in bf16: each layer that attends
+    launches the kernel once in the wgmma body (MLA at its qk dim, V
+    padded; recurrentgemma's local layer with its window, the prompt past
+    it), the recurrent layers none; the logits match the same model with
+    the plain version of attention in its place (chip_smoke.py's bf16
+    bound, 2e-2 x max + 1e-3)."""
+    from repro_torch.models import mla, transformer
+    cfg = configs.get_smoke(arch)
+    model = build(cfg, device=cuda, dtype=torch.bfloat16, seed=6)
+    tok = torch.tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 40)), device=cuda)
+
+    def prefill():
+        return model.prefill({"tokens": tok}, model.init_cache(
+            2, 48, dtype=torch.float32))[0]
+
+    def plain(q, k, v, **kw):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), **kw).transpose(1, 2)
+
+    with torch.inference_mode():
+        before = dict(flash_attention.launches_by_body)
+        got = prefill()
+        torch.cuda.synchronize()
+        ran = {b: n - before[b] for b, n in
+               flash_attention.launches_by_body.items() if n != before[b]}
+        saved = transformer.attention
+        transformer.attention = mla.attention = plain
+        try:
+            want = prefill()
+        finally:
+            transformer.attention = mla.attention = saved
+    assert ran == {"wgmma": attending}
+    assert bool(torch.isfinite(got).all())
+    bound = 2e-2 * want.float().abs().max().item() + 1e-3
+    assert (got.float() - want.float()).abs().max().item() < bound
+
+
 def _filter_inputs(seed, C_, N):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(C_, N)).astype(np.float32)
@@ -530,6 +571,7 @@ def _bshd(rng, B, S, H, Hkv, D, layout, device, dtype=torch.bfloat16):
     (2, 16, 8, 640, 256, True, 256, None, "fused"),  # its local layers
     (1, 4, 1, 200, 256, True, 0, 150, "bhsd"),       # D = 256, kv_len, MQA
     (2, 4, 4, 129, 192, False, 0, None, "bshd"),     # D = 192
+    (8, 40, 40, 512, 96, True, 0, None, "bshd"),     # minicpm3-4b's MLA
 ])
 def test_wgmma_body_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
                                   kv_len, layout):

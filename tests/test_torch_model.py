@@ -177,12 +177,14 @@ def test_unknown_arch_raises():
         tconfigs.get("no-such-model")
 
 
-@pytest.mark.parametrize("block", ["mla:swiglu", "rwkv:rwkv", "rglru:swiglu"])
-def test_unported_block_raises(block):
+@pytest.mark.parametrize("block", ["ssm:swiglu", "full:relu", "rwkv:swiglu"])
+def test_unknown_block_raises(block):
+    """Every decoder block kind is ported; an unknown attention or MLP
+    kind (or an MLP beside RWKV's own channel mix) raises ValueError."""
     cfg = tconfigs.get_smoke("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="unknown block"):
         ttf.block_decl(cfg, block)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="unknown block"):
         ttf.init_cache(cfg.scaled(segments=(((block,), 1),)), 1, 8)
 
 

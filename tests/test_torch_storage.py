@@ -205,8 +205,123 @@ def test_chunked_needs_zstandard(monkeypatch):
             enc.decode(header, payload)
 
 
-def test_bf16_dtype_code_raises():
-    from repro_torch.core.encodings.base import code_dtype, _DTYPE_CODES
+# -- bfloat16 columns (dtype code 12), without ml_dtypes ------------------------
+
+
+def bf16_case(seed=0, n=4096):
+    """The bf16 case of a column ``x`` (4096 values from a normal, with
+    +-0, NaN, +-inf and a subnormal among them) as ``ml_dtypes.bfloat16``
+    for the reference and its uint16 bit patterns for the port, and
+    ``id``."""
+    import ml_dtypes
+    x = np.random.default_rng(seed).normal(size=n).astype(ml_dtypes.bfloat16)
+    x[[5, 9, 2000]] = 0.0
+    x[[11, 3000]] = -0.0
+    x[[12, 13, 14]] = [np.nan, np.inf, -np.inf]
+    x[15] = 1e-40
+    return x, x.view(np.uint16), np.arange(n, dtype=np.int64)
+
+
+def write_bf16_pair(tmp_path, seed=0):
+    """The case written by each package's writer with
+    ``ColumnSpec("x", "bfloat16")``, 1024 rows a group: (port path, ref
+    path, the reference's values)."""
+    x, bits, ids = bf16_case(seed)
+    paths = []
+    for pkg, table, name in ((core, {"x": bits, "id": ids}, "port.bln"),
+                             (ref_core, {"x": x, "id": ids}, "ref.bln")):
+        path = str(tmp_path / name)
+        _write(pkg, path, table, [pkg.ColumnSpec("x", "bfloat16"),
+                                  pkg.ColumnSpec("id", "int64")],
+               rows_per_group=1024)
+        paths.append(path)
+    return paths[0], paths[1], x
+
+
+def test_bf16_dtype_code_is_its_uint16_payload():
+    from repro_torch.core.encodings.base import (_DTYPE_CODES, BF16_STORAGE,
+                                                 code_dtype, code_name,
+                                                 dtype_code)
     assert _DTYPE_CODES["bfloat16"] == 12
-    with pytest.raises(TypeError, match="bfloat16"):
-        code_dtype(12)
+    assert code_dtype(12) == np.uint16 and code_name(12) == "bfloat16"
+    assert dtype_code(BF16_STORAGE) == 12 and dtype_code(np.uint16) == 5
+
+
+def test_bf16_writer_files_byte_identical(tmp_path):
+    """The port's writer, given the bits, writes the reference's file:
+    trivial pages of code 12, empty zone maps, the sketch keys of the
+    values."""
+    port, ref, _ = write_bf16_pair(tmp_path)
+    with open(port, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("writer", ["port", "ref"])
+def test_bf16_read_is_the_bits(tmp_path, writer):
+    """A read hands back the uint16 bit patterns, equal bit for bit to the
+    reference's bf16 values (NaN payloads included); rows and row ids as
+    the reference's."""
+    port, ref, x = write_bf16_pair(tmp_path)
+    path = port if writer == "port" else ref
+    with dataset(path, device="cpu") as ds:
+        got = ds.to_table()
+        rows = ds.select(["x"]).with_rows([0, 7, 1023, 1024, 4095]).to_table()
+    with ref_dataset.dataset(ref) as rds:
+        want = rds.select(["x"]).with_rows([0, 7, 1023, 1024, 4095]).to_table()
+    assert got["x"].dtype == np.uint16
+    _same(got["x"], x.view(np.uint16))
+    _same(got["id"], np.arange(4096, dtype=np.int64))
+    _same(rows["x"], want["x"].view(np.uint16))
+
+
+@pytest.mark.parametrize("pred", ["gt0", "range", "eq0", "ne", "in"])
+def test_bf16_predicates_match_reference(tmp_path, pred):
+    """Predicates read the bits widened to f32 (exact): counts and the
+    rows selected equal the reference's over its bf16 values, -0 == 0 and
+    NaN matching nothing included."""
+    from repro_torch.scan import C
+    from repro.scan import C as RC
+    port, ref, _ = write_bf16_pair(tmp_path)
+    make = {"gt0": lambda c: c("x") > 0,
+            "range": lambda c: (c("x") >= -0.5) & (c("x") < 1.25),
+            "eq0": lambda c: c("x") == 0.0,
+            "ne": lambda c: (c("x") != 0.0) & (c("id") < 100),
+            "in": lambda c: c("x").isin([0.0, 1.0, float("inf")])}[pred]
+    with dataset(port, device="cpu") as ds:
+        n = ds.where(make(C)).count_rows()
+        got = ds.where(make(C)).to_table()
+    with ref_dataset.dataset(ref) as rds:
+        want_n = rds.where(make(RC)).count_rows()
+        want = rds.where(make(RC)).to_table()
+    assert n == want_n > 0
+    _same(got["id"], want["id"])
+    _same(got["x"], want["x"].view(np.uint16))
+
+
+def test_bf16_write_to_matches_reference(tmp_path):
+    """``write_to`` of the bf16 file, whole and filtered: shards
+    byte-identical to the reference's, the schema keeping code 12."""
+    import os
+    from repro_torch.scan import C
+    from repro.scan import C as RC
+    port, ref, _ = write_bf16_pair(tmp_path)
+    for name, where in (("all", None), ("pos", "gt0")):
+        out, ref_out = str(tmp_path / f"{name}-port"), str(tmp_path / f"{name}-ref")
+        with dataset(port, device="cpu") as ds:
+            res = (ds.where(C("x") > 0) if where else ds).write_to(out)
+        with ref_dataset.dataset(ref) as rds:
+            ref_res = (rds.where(RC("x") > 0) if where else rds).write_to(
+                ref_out)
+        assert res.rows == ref_res.rows
+        assert sorted(os.listdir(out)) == sorted(os.listdir(ref_out))
+        for f in os.listdir(out):
+            with open(os.path.join(out, f), "rb") as a, \
+                    open(os.path.join(ref_out, f), "rb") as b:
+                assert a.read() == b.read(), (name, f)
+    assert res.rows < 4096
+
+
+def test_bf16_writer_takes_only_bits(tmp_path):
+    spec = [core.ColumnSpec("x", "bfloat16")]
+    with pytest.raises(TypeError, match="uint16 bit patterns"):
+        _write(core, tmp_path / "f.bln", {"x": np.zeros(4, np.float32)}, spec)
