@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's three main paths. Serving: full-width llama3.2-1b
+Drives the port's four main paths. Serving: full-width llama3.2-1b
 (random weights from the seed, bf16) served by ``ServeEngine``: 8 prompts of
 512 tokens, a prefill and 32 greedy decode steps, with prefill attention in
 the hand-written flash-attention kernel; then the other block families
 the same way at full width (gemma3-12b, deepseek-moe-16b, starcoder2-15b,
-minicpm3-4b (MLA), recurrentgemma-9b (RG-LRU) and rwkv6-7b (RWKV-6) at
-full depth, mixtral-8x22b on 2 layers), with windowed and MLA prefill
-attention in the same kernel. The predicate read:
+minicpm3-4b (MLA), recurrentgemma-9b (RG-LRU), rwkv6-7b (RWKV-6) and
+whisper-base (encoder-decoder, over 1500 frames a clip) at full depth,
+mixtral-8x22b on 2 layers), with windowed, MLA and the encoder's
+non-causal prefill attention in the same kernel. The predicate read:
 ``dataset(p, device="cuda").select(...).where(...).to_table()`` over a 4 Mi-row
 ads table, the LM corpus and a 4 Mi-row table of quantized columns, written
 by the port's writer, with the dequantize of BF16 and affine-integer columns
@@ -21,7 +22,10 @@ values at width 11, in the hand-written unpack kernel. Deletion compliance
 (``delete_where`` on copies of the 4 Mi-row ads table), the write sink
 (``Dataset.write_to`` of the ads query), the training-data loader
 (``BullionLoader`` over an LM corpus of 8 Mi tokens) and trace export, each
-through the same filter and dequant kernels. Training: ``make_train_step``
+through the same filter and dequant kernels. The dataset service:
+``DatasetServer(device="cuda")`` serving the ads table over a socket to 4
+client sessions (range queries, projections and point probes), its
+filter and dequantize in the same kernels. Training: ``make_train_step``
 on full-width, full-depth llama3.2-1b at f32 (B=8, S=512) from a Bullion
 corpus through ``BullionLoader``, every attention forward (and its
 recompute under rematerialisation) in the flash kernel under autograd.
@@ -30,7 +34,7 @@ Phases, one JSON line each:
   1. device         -- CUDA, compute capability 9.x, the card's name and
                        power limit
   2. build          -- nvcc builds every csrc/*.cu for sm_90a, all at once
-  3. kernels        -- flash attention against its plain version, 50 cases
+  3. kernels        -- flash attention against its plain version, 53 cases
                        (the training shape at f32 among them), each
                        through "auto" and through every body that
                        takes it (wgmma, mma for bf16; simt for f32); 19
@@ -41,11 +45,16 @@ Phases, one JSON line each:
                        columns); 7 more f32 ones for the simt body's
                        configurations and copies (ragged S, S < 64, D =
                        1, 100, 128, 200 and 256, the window, kv_len, the
-                       model's views and unaligned views); the last 7 at
+                       model's views and unaligned views); the last 9 at
                        the prefill shapes of phase families (gemma3-12b's
                        with and without its window, MLA_CASE: minicpm3-4b
                        at D = 96, RG_LOCAL: recurrentgemma-9b's local
-                       layer, MQA at D = 256 with window 2048)
+                       layer, MQA at D = 256 with window 2048,
+                       whisper-base's decoder prompt and WHISPER_ENC: its
+                       encoder, not causal, S = 1500, bound 2e-2 x
+                       max|ref| + 1e-3, which dropping its last 28 keys
+                       must exceed), and WHISPER_DEC: its decoder at the
+                       prompt plus 8 positions
   4. filter_kernels -- the range filter against its plain version, bit for
                        bit: C in {1,2,4,8} x N in {1, 2047, 2049, 1000003,
                        2**22} x three kinds of bounds, and strided views
@@ -91,7 +100,8 @@ Phases, one JSON line each:
  12. family_times   -- the wgmma body at MLA_CASE (the padded call) beside
                        SDPA with V at 64 unpadded, with the padded and
                        the unpadded work's bounds; at RG_LOCAL beside SDPA
-                       with the boolean mask; warm and cold
+                       with the boolean mask; at WHISPER_ENC beside SDPA
+                       unmasked and the mma body; warm and cold
  13. families       -- the block families served at full width through
                        ServeEngine in bf16: gemma3-12b (48 layers, B=2,
                        prompt 2048, 32 new tokens: 48 flash launches a
@@ -104,7 +114,10 @@ Phases, one JSON line each:
                        layers, B=2, prompt 4096: 12 wgmma with window
                        2048, none in the 26 RG-LRU layers) and rwkv6-7b
                        (32 layers, B=8, prompt 512: no launch), the last
-                       twice: the loop over time, then rwkv_chunked; each
+                       twice: the loop over time, then rwkv_chunked, and
+                       whisper-base (6 + 6 layers, B=16 clips of 1500
+                       frames, prompt 64, max_seq 448: 12 wgmma, 6 not
+                       causal, by launches_by_causal); each
                        family's prefill and decode times, bounds, peak
                        memory, a profiled prefill and 4 decode steps
                        (flash share, expert products' device ms, pairs
@@ -121,7 +134,14 @@ Phases, one JSON line each:
                        probabilities, greedy decode vs a fresh prefill;
                        recurrentgemma-9b's local layer alone at bf16, on
                        its attention output, the same two checks;
-                       rwkv6-7b's chunked WKV vs the loop over time
+                       rwkv6-7b's chunked WKV vs the loop over time;
+                       whisper-base at one encoder and one decoder layer
+                       over 1500 frames: its logits at f32, and at bf16
+                       every flash launch of the prompt's and 8 fresh
+                       prefills' on its own inputs and each decode step's
+                       self-attention against the kernel's (its
+                       logits_witness line beside them), and the served
+                       model's depth_witness line
  14. filter_times   -- the range filter at C=4, N=2**20 against its bound
                        and its plain version
  15. dequant_times  -- the column-list body at the ads payload's launch
@@ -138,24 +158,31 @@ Phases, one JSON line each:
                        equal to the NumPy route, serially and on 4 threads,
                        scan times, and the time split (host stages, device
                        copies and kernels)
- 18. compliance     -- delete_where on copies of the ads table (a float32
+ 18. service        -- DatasetServer(device="cuda") on the ads table, 4
+                       socket sessions x 25 queries (range, projection,
+                       probes): launches equal to the queries' alone,
+                       replies equal to a device="cpu" server's,
+                       queries/s, p50 and p99; the CLI's fsck --json on
+                       the table (exit 0) and a flipped copy (exit 1),
+                       metrics --socket
+ 19. compliance     -- delete_where on copies of the ads table (a float32
                        range over two dense features at L2 and L1, 16 users
                        at L2): files byte-identical to the device="cpu"
                        route's, the audit, the rows left, the launches,
                        the I/O ratio and the host time of each delete
- 19. sink           -- write_to of the ads query, dequantized, sorted by
+ 20. sink           -- write_to of the ads query, dequantized, sorted by
                        dense_0, in shards of 2**19 rows: shards
                        byte-identical to the cpu route's, read back equal to
                        the scan sorted, the launches; the sink of an L1
                        deleted copy leaves no raw occurrence
- 20. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
+ 21. loader         -- BullionLoader(predicate=) as rank 0 and 1 of 2 against
                        the cpu loader, a mid-epoch resume, the filter's
                        launches with the loader's thread and a main-thread
                        scan reading at once, tokens per second;
                        quality_filtered_read against its cpu route
- 21. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
+ 22. export         -- Dataset.profile(path) of the ads query, BULLION_TRACE
                        in a fresh interpreter, Prometheus text round trip
- 22. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
+ 23. train          -- 8 f32 steps: step_ms each, the median of steps 2-8,
                        train_tokens_per_s beside the bound, peak memory,
                        flash launches (2 x 16 a step, all simt), finite
                        losses; one step traced by kernel (GEMMs, flash
@@ -169,7 +196,7 @@ Phases, one JSON line each:
                        at bf16 compute (all wgmma); the launcher at --smoke
                        to step 6, then resumed to 8; a restored step equal
                        to the uninterrupted one
- 23. train_times    -- flash attention at the training shape (f32, simt)
+ 24. train_times    -- flash attention at the training shape (f32, simt)
                        against its bound, its plain version and SDPA, warm
                        and cold; the plain backward's device time
 
@@ -261,6 +288,7 @@ def zero_counts() -> None:
     for body in flash_attention.launches_by_body:
         flash_attention.launches_by_body[body] = 0
     flash_attention.launches_by_window.clear()
+    flash_attention.launches_by_causal.clear()
 
 
 def counts() -> dict:
@@ -352,6 +380,11 @@ FAMILY_RUNS = (
     dict(arch="rwkv6_7b", B=8, P=512, new=32, max_seq=1024),
     dict(arch="rwkv6_7b", B=8, P=512, new=32, max_seq=1024,
          overrides=dict(rwkv_chunked=True)),
+    # 16 clips of 30 s (the encoder's 1500 frames, from the seed), a prompt
+    # of 64 tokens; max_seq is the decoder's context; `depth_witness`: print
+    # what rounding does to the full-depth logits (its checks hold one layer)
+    dict(arch="whisper_base", B=16, P=64, new=32, max_seq=448,
+         depth_witness=True),
 )
 # the kernel at MLA's prefill shape (minicpm3-4b: 40 heads, qk dim 64 + 32,
 # V padded from 64 to 96) and at recurrentgemma-9b's local layers (MQA,
@@ -360,6 +393,17 @@ MLA_CASE = dict(B=8, H=40, Hkv=40, S=512, D=96, dtype=torch.bfloat16,
                 causal=True, window=0, kv_len=None, layout="bshd")
 MLA_DV = 64
 RG_LOCAL = dict(B=2, H=16, Hkv=1, S=4096, D=256, window=2048)
+# whisper-base's encoder attention: 16 clips of 1500 frames, 8 heads of 64,
+# not causal; S is not a multiple of the 64-key tile
+WHISPER_ENC = dict(B=16, H=8, Hkv=8, S=1500, D=64, dtype=torch.bfloat16,
+                   causal=False, window=0, kv_len=None, layout="bshd")
+# its keys past WHISPER_DROP: a kernel that skipped them would be off by
+# the bound or more (phase kernels' fault witness)
+WHISPER_DROP = 28
+# whisper-base's decoder, causal at the prompt plus 8 decode positions:
+# past a multiple of 64 keys (phase families' fresh prefills at P + i)
+WHISPER_DEC = dict(B=2, H=8, Hkv=8, S=72, D=64, dtype=torch.bfloat16,
+                   causal=True, window=0, kv_len=None, layout="bshd")
 
 
 def _family_label(run) -> str:
@@ -379,8 +423,9 @@ def _family_cfg(run):
 
 def _windows(cfg) -> dict:
     """{window the flash kernel is given: layers} of a prefill: one launch
-    for each layer that attends (full, global, window, local, mla), none
-    for the recurrent ones (rglru, rwkv)."""
+    for each layer that attends (full, global, window, local, mla; an
+    encoder-decoder's encoder layers, with no window), none for the
+    recurrent ones (rglru, rwkv)."""
     from repro_torch.models.transformer import ATTENDING, WINDOWED
     out: dict = {}
     for blocks, rep in cfg.segments:
@@ -389,7 +434,17 @@ def _windows(cfg) -> dict:
             if kind in ATTENDING:
                 w = cfg.window if kind in WINDOWED else 0
                 out[w] = out.get(w, 0) + rep
+    if cfg.encoder is not None:
+        out[0] = out.get(0, 0) + cfg.encoder.n_layers
     return out
+
+
+def _causal(cfg) -> dict:
+    """{causal flag the flash kernel is given: layers} of a prefill: the
+    encoder's layers attend in both directions, every other one causally."""
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    n_causal = sum(_windows(cfg).values()) - n_enc
+    return {flag: n for flag, n in ((True, n_causal), (False, n_enc)) if n}
 
 
 def _attn_dim(cfg) -> int:
@@ -487,8 +542,15 @@ def kernel_cases() -> list[dict]:
                         layout="bshd")
             if case not in cases:
                 cases.append(case)
-    check(MLA_CASE in cases and _rg_local_case() in cases,
-          "kernel cases: no case at MLA_CASE or RG_LOCAL")
+        if cfg.encoder is not None:
+            cases.append(dict(B=run["B"], H=cfg.n_heads, Hkv=cfg.n_heads,
+                              S=cfg.encoder.seq, D=cfg.head_dim,
+                              dtype=torch.bfloat16, causal=False, window=0,
+                              kv_len=None, layout="bshd"))
+    cases.append(dict(WHISPER_DEC))
+    check(MLA_CASE in cases and _rg_local_case() in cases
+          and WHISPER_ENC in cases,
+          "kernel cases: no case at MLA_CASE, RG_LOCAL or WHISPER_ENC")
     return cases
 
 
@@ -526,12 +588,13 @@ def phase_kernels(seed: int) -> tuple[float, dict, float, dict, dict]:
     and through every body that takes it; returns the wgmma body's error
     at the serving shape, the wgmma and mma bodies' at WIDE_CASE, the simt
     body's at TRAIN_CASE, the wgmma and mma bodies' at GEMMA_LOCAL, and the
-    wgmma and mma bodies' at MLA_CASE ("mla") and RG_LOCAL ("rg_local")."""
+    wgmma and mma bodies' at MLA_CASE ("mla"), RG_LOCAL ("rg_local") and
+    WHISPER_ENC ("whisper_enc")."""
     from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                      flash_attention)
     serve_err = train_err = None
     wide_err, window_err = {}, {}
-    family_err: dict = {"mla": {}, "rg_local": {}}
+    family_err: dict = {"mla": {}, "rg_local": {}, "whisper_enc": {}}
     for i, c in enumerate(kernel_cases()):
         rng = np.random.default_rng(seed + i)
         q, k, v = _inputs(rng, c["B"], c["H"], c["Hkv"], c["S"], c["D"],
@@ -550,7 +613,7 @@ def phase_kernels(seed: int) -> tuple[float, dict, float, dict, dict]:
               f"of {bodies}, expected {want}")
         check(c["dtype"] != torch.bfloat16 or "mma" in bodies,
               f"kernel case {i}: the mma body does not take it")
-        tol = TOL[c["dtype"]]
+        tol = _case_tol(c, ref)
         for body in ["auto", *bodies]:
             before = dict(flash_attention.launches_by_body)
             if c["layout"] in ("bshd", "fused", "offset"):
@@ -579,15 +642,42 @@ def phase_kernels(seed: int) -> tuple[float, dict, float, dict, dict]:
             if body in ("wgmma", "mma") and [c[k] for k in GEMMA_LOCAL] == \
                     list(GEMMA_LOCAL.values()):
                 window_err[body] = err
-            for name, case in (("mla", MLA_CASE), ("rg_local",
-                                                   _rg_local_case())):
+            for name, case in (("mla", MLA_CASE),
+                               ("rg_local", _rg_local_case()),
+                               ("whisper_enc", WHISPER_ENC)):
                 if c == case and body in ("wgmma", "mma"):
                     family_err[name][body] = err
+            if c == WHISPER_ENC and body in ("wgmma", "mma"):
+                _drop_witness(q, k, v, ref, body, tol)
     check(len(window_err) == 2 and len(wide_err) == 2
           and all(len(e) == 2 for e in family_err.values()),
-          "no wgmma or mma case at WIDE_CASE, GEMMA_LOCAL, MLA_CASE or "
-          "RG_LOCAL")
+          "no wgmma or mma case at WIDE_CASE, GEMMA_LOCAL, MLA_CASE, "
+          "RG_LOCAL or WHISPER_ENC")
     return serve_err, wide_err, train_err, window_err, family_err
+
+
+def _case_tol(c: dict, ref) -> float:
+    """A kernel case's bound: TOL by dtype; at WHISPER_ENC 2e-2 x max|ref|
+    + 1e-3 as in phase logits, since 1500 keys in both directions leave a
+    typical |out| near 0.03, about TOL[bf16] itself."""
+    if c == WHISPER_ENC:
+        return 2e-2 * ref.float().abs().max().item() + 1e-3
+    return TOL[c["dtype"]]
+
+
+def _drop_witness(q, k, v, ref, body: str, tol: float) -> None:
+    """WHISPER_ENC's bound catches a kernel that skips keys: the body with
+    its last WHISPER_DROP keys masked (kv_len), held against the full
+    reference, must be off by ``tol`` or more."""
+    from repro_torch.kernels.flash_attention import attention
+    S = q.shape[1]
+    out = attention(q, k, v, body=body, causal=False,
+                    kv_len=S - WHISPER_DROP).transpose(1, 2)
+    err = (out.float() - ref.float()).abs().max().item()
+    emit("kernels", check="whisper_enc_drop_witness", body=body,
+         kv_len=S - WHISPER_DROP, max_abs_err=err, tol=tol)
+    check(err >= tol, f"WHISPER_ENC {body}: dropping {WHISPER_DROP} keys "
+          f"gives {err} < {tol}: the bound cannot see it")
 
 
 def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
@@ -603,15 +693,15 @@ def _plain(q, k, v, *, causal=True, window=0, kv_len=None, f32=False):
 
 @contextlib.contextmanager
 def model_attention(fn):
-    """Route the model's prefill attention (the attention blocks' and
-    MLA's) through fn for one run."""
-    from repro_torch.models import mla, transformer
+    """Route the model's prefill attention (the attention blocks', MLA's
+    and the encoder-decoder's) through fn for one run."""
+    from repro_torch.models import encdec, mla, transformer
     saved = transformer.attention
-    transformer.attention = mla.attention = fn
+    transformer.attention = mla.attention = encdec.attention = fn
     try:
         yield saved
     finally:
-        transformer.attention = mla.attention = saved
+        transformer.attention = mla.attention = encdec.attention = saved
 
 
 def _bound(ref, got) -> tuple[float, float]:
@@ -815,18 +905,22 @@ def _mufu_ex2_per_s() -> float:
     return 16 * sms * float(mhz) * 1e6
 
 
-def _live_pairs(S: int, window: int = 0) -> int:
-    """Live (query, key) pairs of a causal call over S positions: query i
-    sees i + 1 keys, at most ``window`` of them where window > 0."""
+def _live_pairs(S: int, window: int = 0, causal: bool = True) -> int:
+    """Live (query, key) pairs of a call over S positions: query i sees
+    i + 1 keys where causal, at most ``window`` of them where window > 0;
+    all S where not causal (no window)."""
+    if not causal:
+        check(window <= 0, "a non-causal call with a window")
+        return S * S
     if window <= 0 or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def _flash_work(B, H, Hkv, S, D, size, window=0):
-    """Bytes a causal call must move (each input read once, the output
-    written once) and the products of its live (query, key) pairs."""
-    live_pairs = B * H * _live_pairs(S, window)
+def _flash_work(B, H, Hkv, S, D, size, window=0, causal=True):
+    """Bytes a call must move (each input read once, the output written
+    once) and the products of its live (query, key) pairs."""
+    live_pairs = B * H * _live_pairs(S, window, causal)
     return (2 * B * S * H + 2 * B * S * Hkv) * D * size, 4 * D * live_pairs, \
         live_pairs
 
@@ -954,7 +1048,8 @@ def phase_family_times(seed: int) -> dict:
     output at 64) beside it, and SDPA given q, k at 96 and V at 64
     unpadded. RG_LOCAL: recurrentgemma-9b's local layer (MQA, window 2048,
     a prompt of twice the window) beside SDPA with the boolean
-    causal-and-window mask."""
+    causal-and-window mask. WHISPER_ENC: whisper-base's encoder attention
+    (not causal, S = 1500) beside SDPA unmasked, and the mma body."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention, attention_ref
     sdpa = F.scaled_dot_product_attention
@@ -1016,6 +1111,31 @@ def phase_family_times(seed: int) -> dict:
          library_call="SDPA, boolean causal-and-window mask",
          wgmma_over_library=row["ms"] / row["library_ms"], **row)
     out["rg_local"] = dict(row, cold_l2_ms=extra["cold_l2_ms"])
+
+    c = WHISPER_ENC
+    B, H, Hkv, S, D = (c[k] for k in ("B", "H", "Hkv", "S", "D"))
+    q, k, v = _inputs(np.random.default_rng(seed), B, H, Hkv, S, D,
+                      torch.bfloat16, "bshd")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    bytes_moved, flops, live_pairs = _flash_work(B, H, Hkv, S, D,
+                                                 q.element_size(),
+                                                 causal=False)
+    row, extra = _time_kernel(
+        lambda: attention(q, k, v, causal=False, body="wgmma"),
+        lambda: attention_ref(qt, kt, vt, causal=False),
+        bytes_moved=bytes_moved, ops=flops, op_rate=BF16_FLOP_PER_S,
+        library=lambda: sdpa(qt, kt, vt))
+    flush = torch.empty(2**27, dtype=torch.uint8, device="cuda")
+    mma_ms, mma_cold_ms = _warm_cold_ms(
+        lambda: attention(q, k, v, causal=False, body="mma"), flush)
+    row.update(mma_ms=mma_ms, mma_cold_l2_ms=mma_cold_ms)
+    emit("family_times", shape=[B, H, Hkv, S, D], dtype="bfloat16",
+         causal=False, body="wgmma", arch="whisper-base", **extra,
+         live_scores=live_pairs,
+         library_call="SDPA, not causal, no mask",
+         mma_over_wgmma=mma_ms / row["ms"],
+         wgmma_over_library=row["ms"] / row["library_ms"], **row)
+    out["whisper_enc"] = dict(row, cold_l2_ms=extra["cold_l2_ms"])
     return out
 
 
@@ -1044,29 +1164,35 @@ def _moe_probes(drops: list):
         moe._experts, moe._dispatch = saved
 
 
-def _family_profile(model, prompts, max_seq: int, steps: int = 4) -> dict:
+def _family_profile(model, prompts, max_seq: int, steps: int = 4,
+                    frames=None) -> dict:
     """One prefill and ``steps`` decode steps under torch.profiler: device
     time, busy share, the flash kernel's and the GEMMs' device time, the
     routed experts' device time (range ``moe_experts``), the pairs
     dropped by capacity, and whether the last logits are finite. Host
     operators are recorded only for the MoE families (their range needs
     them): rwkv6-7b's loop over time launches about 10^5 kernels a
-    prefill, and each host record costs the profiler's processing time."""
+    prefill, and each host record costs the profiler's processing time.
+    ``frames``: an encoder-decoder's, copied to the card before the
+    prefill's profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     moe = any(b.endswith(":moe") for bl, _ in model.cfg.segments for b in bl)
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
     out = {}
     with torch.inference_mode():
-        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
-        cache = model.init_cache(toks.shape[0], max_seq, dtype=torch.float32)
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                           device="cuda")}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(frames, device="cuda")
+        cache = model.init_cache(len(prompts), max_seq, dtype=torch.float32)
         for what in ("prefill", f"decode_{steps}_steps"):
             drops: list = []
             torch.cuda.synchronize()
             with _moe_probes(drops), profile(activities=acts) as prof:
                 t0 = time.perf_counter()
                 if what == "prefill":
-                    lg, cache = model.prefill({"tokens": toks}, cache)
+                    lg, cache = model.prefill(batch, cache)
                 else:
                     for _ in range(steps):
                         lg, cache = model.decode_step(
@@ -1111,6 +1237,8 @@ def _serve_bounds(model, cfg, B: int, P: int, max_seq: int) -> dict:
     (RWKV's S, RG-LRU's h and conv) once: each of a block's cache tensors
     as ``transformer.block_cache`` declares it."""
     from repro_torch.models import transformer as tf
+    if cfg.encoder is not None:
+        return _encdec_bounds(model, cfg, B, P, max_seq)
     head = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     expert = sum(p.numel() for n, p in model.named_parameters()
                  if ".moe.w" in n)
@@ -1141,6 +1269,47 @@ def _serve_bounds(model, cfg, B: int, P: int, max_seq: int) -> dict:
                 decode_bytes_per_step=int(step_bytes),
                 cache_bytes=int(cache_bytes),
                 recurrent_state_bytes=int(state_bytes))
+
+
+def _encdec_bounds(model, cfg, B: int, P: int, max_seq: int) -> dict:
+    """``_serve_bounds`` of an encoder-decoder. A prefill does the encoder's
+    products over B x encoder.seq frames and its attention over all S^2
+    pairs of each clip, the cross K and V of every decoder layer over the
+    frames, the decoder's other products over B x P tokens, its causal
+    self-attention and its cross-attention over P x S pairs, and the last
+    token's logits; it reads every weight and the f32 frames once and
+    writes the f32 cross K/V cache once. A decode step reads the weights
+    the decoder uses (not the encoder's, not the cross K/V projections)
+    and the whole f32 cache, the self K/V and the cross K/V, once."""
+    S, H, D = cfg.encoder.seq, cfg.n_heads, cfg.head_dim
+    L_enc, L_dec = cfg.encoder.n_layers, cfg.n_layers
+    sizes = {n: p.numel() for n, p in model.named_parameters()}
+    enc = sum(n for k, n in sizes.items() if k.startswith("enc_"))
+    cross_kv = sum(n for k, n in sizes.items()
+                   if ".cross_attn.wk" in k or ".cross_attn.wv" in k)
+    dec = sum(n for k, n in sizes.items() if k.startswith("dec_")) - cross_kv
+    head = cfg.vocab * cfg.d_model
+    parts = dict(
+        encoder_products=2 * enc * B * S,
+        encoder_attention=4 * D * H * B * _live_pairs(S, causal=False) * L_enc,
+        cross_kv=2 * cross_kv * B * S,
+        decoder=(2 * dec * B * P + 4 * D * H * B * _live_pairs(P) * L_dec
+                 + 4 * D * H * B * P * S * L_dec + 2 * head * B))
+    flops = sum(parts.values())
+    size = 2                                            # bf16 weights
+    cross_bytes = 2 * L_dec * B * S * H * D * 4         # f32 cache
+    self_bytes = 2 * L_dec * B * max_seq * cfg.n_kv_heads * D * 4
+    prefill_bytes = (model.n_params * size + B * S * cfg.d_model * 4
+                     + cross_bytes)
+    step_bytes = (dec + head) * size + self_bytes + cross_bytes
+    prefill_s = max(flops / BF16_FLOP_PER_S, prefill_bytes / HBM_BYTES_PER_S)
+    return dict(prefill_bound_ms=prefill_s * 1e3, prefill_flops=int(flops),
+                prefill_flops_by_part={k: int(v) for k, v in parts.items()},
+                prefill_bytes=int(prefill_bytes),
+                decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3,
+                decode_bytes_per_step=int(step_bytes),
+                cache_bytes=int(self_bytes + cross_bytes),
+                recurrent_state_bytes=0)
 
 
 F32_EXP_MAX = math.log(torch.finfo(torch.float32).max)     # 88.72
@@ -1193,12 +1362,53 @@ def _wkv_overflow_probe(model, prompts, max_seq: int) -> dict:
                 **(calls[first] if first is not None else {}))
 
 
+def _depth_witness(model, prompts, frames, max_seq: int) -> None:
+    """Not a check: the served model's last-token prefill logits through
+    the kernel, the plain version and the plain version with f32
+    probabilities, and their distances, beside the bound of
+    ``_family_logits``: where rounding the probabilities alone moves the
+    logits past it, the logit checks hold fewer layers."""
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device="cuda")}
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device="cuda")
+    lg = {}
+    with torch.inference_mode():
+        for name, attn in (("kernel", None), ("plain", _plain),
+                           ("plain_f32_probs",
+                            functools.partial(_plain, f32=True))):
+            cache = model.init_cache(len(prompts), max_seq,
+                                     dtype=torch.float32)
+            with model_attention(attn) if attn else contextlib.nullcontext():
+                lg[name] = model.prefill(batch, cache)[0]
+    emit("families", arch=model.cfg.name, diagnostic="depth_witness",
+         n_layers=model.cfg.n_layers,
+         max_abs_logit=lg["plain_f32_probs"].float().abs().max().item(),
+         bound=_bound(lg["plain_f32_probs"], lg["kernel"])[1],
+         kernel_vs_plain_f32_probs=_bound(lg["plain_f32_probs"],
+                                          lg["kernel"])[0],
+         kernel_vs_plain=_bound(lg["plain"], lg["kernel"])[0],
+         plain_vs_plain_f32_probs=_bound(lg["plain_f32_probs"],
+                                         lg["plain"])[0])
+
+
+def _frames(cfg, B: int, rng):
+    """An encoder-decoder's stubbed front end: N(0, 1) frame embeddings
+    [B, encoder.seq, d_model], f32 from numpy; None for a decoder-only
+    model."""
+    if cfg.encoder is None:
+        return None
+    return rng.normal(size=(B, cfg.encoder.seq, cfg.d_model)).astype(
+        np.float32)
+
+
 def _serve_family(seed: int, run: dict) -> int:
     """One family's main path: build at full width (depth as FAMILY_RUNS
-    says), serve through ServeEngine, check the launches (one a layer in
-    the prefill, the body the rule gives, each with its block's window)
-    and the tokens, then profile a prefill and 4 decode steps. Returns the
-    flash launches of the main path."""
+    says), serve through ServeEngine (an encoder-decoder given frames
+    from the seed), check the launches (one a layer in the prefill, the
+    body the rule gives, each with its block's window and causal flag)
+    and the tokens, then profile a prefill and 4 decode steps. Returns
+    the flash launches of the main path."""
     import repro_torch.configs as configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.zoo import build
@@ -1211,17 +1421,19 @@ def _serve_family(seed: int, run: dict) -> int:
     model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab, (B, P)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    frames = _frames(cfg, B, rng)
     eng = ServeEngine(model, max_seq=max_seq, device="cuda")
-    eng.generate(prompts, max_new_tokens=2)                    # warm-up
+    eng.generate(prompts, max_new_tokens=2, frames=frames)     # warm-up
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    out = eng.generate(prompts, max_new_tokens=new)            # the main path
+    out = eng.generate(prompts, max_new_tokens=new, frames=frames)  # main path
     launched = counts()
     by_body = {b: n for b, n in flash_attention.launches_by_body.items() if n}
     by_window = dict(flash_attention.launches_by_window)
+    by_causal = dict(flash_attention.launches_by_causal)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     body = "wgmma"        # every family: aligned bf16, D <= 256
     attending = sum(_windows(cfg).values())
@@ -1235,11 +1447,16 @@ def _serve_family(seed: int, run: dict) -> int:
     check(by_window == _windows(cfg),
           f"{cfg.name}: launches by window {by_window}, expected "
           f"{_windows(cfg)}")
+    check(by_causal == _causal(cfg),
+          f"{cfg.name}: launches by causal flag {by_causal}, expected "
+          f"{_causal(cfg)}")
     gen = out["tokens"]
     check(gen.shape == (B, new) and
           bool(((gen >= 0) & (gen < cfg.vocab)).all()),
           f"{cfg.name}: generated tokens")
-    prof = _family_profile(model, prompts, max_seq)
+    prof = _family_profile(model, prompts, max_seq, frames=frames)
+    if run.get("depth_witness"):
+        _depth_witness(model, prompts, frames, max_seq)
     check(prof["prefill"]["dropped_pairs"] <= prof["prefill"]["routed_pairs"],
           "drop counts")
     finite = [prof[k]["logits_finite"] for k in prof]
@@ -1270,6 +1487,8 @@ def _serve_family(seed: int, run: dict) -> int:
          flash_launches_per_prefill=launched["flash_attention"],
          flash_launches_by_body=by_body,
          flash_launches_by_window={str(w): n for w, n in by_window.items()},
+         flash_launches_by_causal={str(c): n for c, n in by_causal.items()},
+         encoder=dataclasses.asdict(cfg.encoder) if cfg.encoder else None,
          peak_mem_gb=peak_gb, first_tokens=gen[0, :8].tolist(),
          logits_finite=all(finite), wkv_overflow=overflow,
          profile=prof, host_s=time.perf_counter() - t0)
@@ -1297,15 +1516,21 @@ def _family_logits(cfg, seed: int, B: int, P: int, steps: int,
     from repro_torch.models.zoo import build
     model = build(cfg, device="cuda", dtype=dtype, seed=seed)
     prompts = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (B, P))
+    frames = _frames(cfg, B, np.random.default_rng(seed + 4))
+    if frames is not None:
+        frames = torch.as_tensor(frames, device="cuda")
     max_seq = P + steps
     plain32 = functools.partial(_plain, f32=True)
 
     def prefill(toks, attn=None):
         cache = model.init_cache(B, max_seq, dtype=torch.float32)
+        batch = {"tokens": toks}
+        if frames is not None:
+            batch["frames"] = frames
         if attn is None:
-            return model.prefill({"tokens": toks}, cache)
+            return model.prefill(batch, cache)
         with model_attention(attn):
-            return model.prefill({"tokens": toks}, cache)
+            return model.prefill(batch, cache)
 
     with torch.inference_mode():
         toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
@@ -1315,6 +1540,7 @@ def _family_logits(cfg, seed: int, B: int, P: int, steps: int,
         check(bool(torch.isfinite(lg).all()), f"{cfg.name}: prefill logits")
         err, bound = _bound(lg_plain32, lg)
         emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+             encoder_layers=cfg.encoder.n_layers if cfg.encoder else None,
              dtype=str(dtype).replace("torch.", ""),
              window=cfg.window if any(_windows(cfg)) else None, prompt_len=P,
              check="prefill_kernel_vs_plain_f32_probs", max_abs_err=err,
@@ -1415,6 +1641,107 @@ def _local_layer_check(cfg, seed: int, B: int, P: int, steps: int) -> None:
     torch.cuda.empty_cache()
 
 
+def _encdec_attention_check(cfg, seed: int, B: int, P: int,
+                            steps: int) -> None:
+    """whisper-base at full width, bf16, held on its attention outputs
+    (before the output projection), where the kernel is the whole
+    signal. Every flash launch of a prefill against the plain
+    version with f32 probabilities on the launch's own q, k, v: the
+    encoder's (not causal, over the 1500 frames) and the decoder's
+    (causal) at the prompt and at each fresh prefill of prompt + the
+    tokens generated so far (P + 1 .. P + steps keys). Each decode step's
+    self-attention over the cache (plain) against the last row of the
+    kernel's decoder launch at that step's fresh prefill. Bound as in
+    phase logits. Beside each fresh prefill, not held: its logits through
+    the kernel and the bf16-probability plain version against the
+    f32-probability one, the witness that rounding the probabilities alone
+    moves this random-init model's logits past the bound (PERF.md)."""
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.models import encdec
+    from repro_torch.models.zoo import build
+    model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    prompts = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (B, P))
+    frames = torch.as_tensor(_frames(cfg, B, np.random.default_rng(seed + 4)),
+                             device="cuda")
+    plain32 = functools.partial(_plain, f32=True)
+    launched, decoded = [], []
+
+    def spy(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        err, bound = _bound(plain32(q, k, v, **kw), out)
+        launched.append(dict(causal=kw["causal"], err=err, bound=bound,
+                             out=out))
+        return out
+
+    def dot_spy(q, k, v, *args, causal=True, **kw):
+        out = dot_attention(q, k, v, *args, causal=causal, **kw)
+        if causal:                      # the self-attention, not the cross
+            decoded.append(out)
+        return out
+
+    def prefill(toks, attn=spy):
+        launched.clear()
+        cache = model.init_cache(B, P + steps, dtype=torch.float32)
+        with model_attention(attn):
+            lg, cache = model.prefill({"tokens": toks, "frames": frames},
+                                      cache)
+        return lg, cache
+
+    def held():
+        check([c["causal"] for c in launched] == [False, True],
+              f"{cfg.name}: prefill launches {launched}")
+        rows.append([[c["err"], c["bound"]] for c in launched])
+
+    rows, dec_errs, dec_bounds = [], [], []
+    dot_attention = encdec.dot_attention
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+        lg, cache = prefill(toks)
+        held()
+        gen = [lg.argmax(-1)[:, None]]
+        for i in range(steps):
+            decoded.clear()
+            encdec.dot_attention = dot_spy
+            try:
+                lg_dec, cache = model.decode_step(cache, gen[-1])
+            finally:
+                encdec.dot_attention = dot_attention
+            check(bool(torch.isfinite(lg_dec).all()) and len(decoded) == 1,
+                  f"{cfg.name}: decode step {i}")
+            seq = torch.cat([toks, *gen], dim=1)     # its last row: P + i
+            lg_k = prefill(seq)[0]
+            held()
+            err, bound = _bound(launched[1]["out"][:, -1:], decoded[0])
+            dec_errs.append(err)
+            dec_bounds.append(bound)
+            lg32 = prefill(seq, plain32)[0]
+            emit("family_logits", arch=cfg.name, dtype="bfloat16",
+                 diagnostic="logits_witness", prompt_len=seq.shape[1],
+                 bound=_bound(lg32, lg_k)[1],
+                 kernel_vs_plain_f32_probs=_bound(lg32, lg_k)[0],
+                 plain_vs_plain_f32_probs=_bound(
+                     lg32, prefill(seq, _plain)[0])[0],
+                 decode_vs_plain_f32_probs=_bound(lg32, lg_dec)[0])
+            gen.append(lg_dec.argmax(-1)[:, None])
+    emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
+         encoder_layers=cfg.encoder.n_layers, dtype="bfloat16",
+         check="attention_kernel_vs_plain_f32_probs",
+         prompt_lens=[P, P + steps],
+         launches="[encoder not causal, decoder causal] a prefill",
+         max_abs_err_bound=rows)
+    check(all(e < b for row in rows for e, b in row),
+          f"{cfg.name}: attention launches against the plain version: "
+          f"{rows}")
+    emit("family_logits", arch=cfg.name, dtype="bfloat16",
+         check="decode_attention_vs_fresh_prefill",
+         positions=[P, P + steps - 1], max_abs_err=dec_errs,
+         bound=dec_bounds)
+    check(all(e < b for e, b in zip(dec_errs, dec_bounds)),
+          f"{cfg.name} decode attention: {dec_errs} against {dec_bounds}")
+    del model, cache
+    torch.cuda.empty_cache()
+
+
 WKV_W0 = -5.0     # the decay bias of phase families' route check
 
 
@@ -1456,16 +1783,19 @@ def _wkv_routes(cfg, seed: int, B: int, P: int) -> None:
 def phase_families(seed: int) -> dict:
     """The block families served at full width: gemma3-12b,
     deepseek-moe-16b, starcoder2-15b, minicpm3-4b (MLA),
-    recurrentgemma-9b (RG-LRU and local attention) and rwkv6-7b (twice:
-    the loop over time, then the chunked WKV) at full depth,
+    recurrentgemma-9b (RG-LRU and local attention), rwkv6-7b (twice:
+    the loop over time, then the chunked WKV) and whisper-base (the
+    encoder-decoder) at full depth,
     mixtral-8x22b on 2 of its 56 layers; then the one-repeat logit checks
     (gemma3-12b at 6 layers with a prompt past its window,
     deepseek-moe-16b at a dense and a MoE layer with capacity for every
     pair, so that decode and prefill drop nothing; minicpm3-4b at one
     layer; recurrentgemma-9b at one pattern of 3 layers with a prompt past
     its window, at f32, and its local layer alone at bf16; rwkv6-7b at one
-    layer, and its two WKV routes against each other). Returns the flash launches of each main path and each family's
-    host seconds."""
+    layer, and its two WKV routes against each other; whisper-base at one
+    encoder and one decoder layer over 1500 frames, its logits at f32 and
+    its attention outputs at bf16).
+    Returns the flash launches of each main path."""
     import repro_torch.configs as configs
     launches, host_s = {}, {}
     for run in FAMILY_RUNS:
@@ -1501,6 +1831,20 @@ def phase_families(seed: int) -> dict:
                                           segments=((("rwkv:none",), 1),))
     _family_logits(rwkv, seed, B=2, P=512, steps=8)
     _wkv_routes(rwkv, seed, B=2, P=512)
+    # whisper-base at one encoder and one decoder layer, over the encoder's
+    # 1500 frames: the logits at f32 (flash in `simt`), and at bf16 (in
+    # `wgmma`) the attention outputs. At bf16, rounding the probabilities
+    # alone moves its logits past the bound, at full depth and at one
+    # layer (PERF.md; the served model's full-depth readings are phase
+    # families' `depth_witness` line, one layer's the `logits_witness`).
+    whisper = configs.get("whisper_base")
+    one = whisper.scaled(segments=((whisper.segments[0][0], 1),),
+                         encoder=dataclasses.replace(whisper.encoder,
+                                                     n_layers=1))
+    _family_logits(one.scaled(compute_dtype="float32"), seed, B=2, P=64,
+                   steps=8, dtype=torch.float32)
+    _encdec_attention_check(one.scaled(compute_dtype="bfloat16"), seed,
+                            B=2, P=64, steps=8)
     host_s["logit_checks"] = time.perf_counter() - t0
     emit("families", host_s=host_s)
     return launches
@@ -2024,6 +2368,174 @@ def phase_scan(seed: int, tmp: str) -> tuple[int, int]:
              host_ms_by_column=by_column,
              profiled_ms=profiled_s * 1e3, device=_device_split(prof))
     return main_launches["range_mask"], main_launches["dequant_packed"]
+
+
+SERVICE_SESSIONS, SERVICE_QUERIES = 4, 25     # client sessions, queries each
+SERVICE_HEAD = 2**16          # the narrow projection: a batch of 64 Ki rows
+
+
+def _service_queries(C, users) -> list:
+    """One session's 25 queries, the feature-serving mix on the ads table,
+    repeating [range, projection, probe, probe, probe]: the ads scan's
+    four-term range predicate returning two narrow columns; a projection
+    of three columns, its first SERVICE_HEAD rows; and point probes
+    ``user_id == k`` of five columns, one literal each from ``users``."""
+    ads_pred = _scan_queries()[0][3]
+    out, it = [], iter(users)
+    for j in range(SERVICE_QUERIES):
+        if j % 5 == 0:
+            out.append(("range", dict(columns=["user_id", "label"],
+                                      where=ads_pred)))
+        elif j % 5 == 1:
+            out.append(("projection", dict(
+                columns=["user_id", "dense_0", "dense_1"],
+                head=SERVICE_HEAD)))
+        else:
+            out.append(("probe", dict(
+                columns=["user_id", "ts", "dense_0", "dense_1", "label"],
+                where=C("user_id") == int(next(it)))))
+    return out
+
+
+def _flip_page_byte(path: str, page: int = 0) -> None:
+    from repro_torch.core.footer import read_footer
+    fv, _ = read_footer(path)
+    off, size = fv.page_extent(page)
+    with open(path, "r+b") as f:
+        f.seek(off + size // 2)
+        b = f.read(1)
+        f.seek(off + size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase_service(seed: int, tmp: str) -> dict:
+    """The dataset service on the scan's ads table: a
+    ``DatasetServer(device="cuda")`` on an AF_UNIX socket, and
+    SERVICE_SESSIONS client sessions at once, each sending SERVICE_QUERIES
+    queries (``_service_queries``; the probes' literals from the seed).
+    Each distinct query first runs alone on a server of its own, which
+    gives its launches of the filter and of the column-list dequant; the
+    concurrent run must launch their sum, and every reply must equal what
+    an in-process ``device="cpu"`` server returns. Prints queries/s, the
+    host clock's p50 and p99 latency a query, the plan cache's hits.
+    Then ``python -m repro_torch.cli fsck --json`` on the table (exit 0)
+    and on a copy with one page byte flipped (exit 1), and ``metrics
+    --socket`` against the live server. Returns the concurrent run's
+    launches."""
+    import concurrent.futures
+    from repro_torch.dataset import dataset
+    from repro_torch.scan import C
+    from repro_torch.serve import DatasetServer, ServeClient
+    ads = scan_paths(tmp)["ads"]
+    with dataset(ads, device="cpu") as ds:
+        users = ds.select(["user_id"]).to_table()["user_id"]
+    rng = np.random.default_rng(seed + 5)
+    n_probes = SERVICE_QUERIES * 3 // 5
+    sessions = [_service_queries(C, rng.choice(users, n_probes))
+                for _ in range(SERVICE_SESSIONS)]
+    kinds = [q for session in sessions for q in session]
+
+    t0 = time.perf_counter()
+    solo, want = [], []
+    with DatasetServer({"ads": ads}, device="cuda") as srv, \
+            DatasetServer({"ads": ads}, device="cpu") as cpu:
+        for _, q in kinds:
+            zero_counts()
+            srv.query("ads", **q)
+            solo.append(counts())
+            want.append(cpu.query("ads", **q).table)
+    setup_s = time.perf_counter() - t0
+    expect = {k: sum(c[k] for c in solo) for k in solo[0]}
+    check(expect["range_mask"] > 0 and expect["dequant_packed"] > 0
+          and expect["flash_attention"] == expect["dequant"] ==
+          expect["bitunpack"] == 0,
+          f"service: the queries alone launched {expect}")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = [sys.executable, "-m", "repro_torch.cli"]
+    with DatasetServer({"ads": ads}, device="cuda") as srv:
+        sock = srv.serve(os.path.join(tmp, "serve.sock"))
+
+        def session(i):
+            lat, tables = [], []
+            with ServeClient(sock, timeout=600) as client:
+                for _, q in sessions[i]:
+                    t1 = time.perf_counter()
+                    tables.append(client.query("ads", **q).table)
+                    lat.append(time.perf_counter() - t1)
+            return lat, tables
+
+        zero_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVICE_SESSIONS) as pool:
+            results = list(pool.map(session, range(SERVICE_SESSIONS)))
+        wall = time.perf_counter() - t0                  # the main path
+        launched = counts()
+        stats = srv.stats()
+        metrics = subprocess.run(cli + ["metrics", "--socket", sock],
+                                 env=env, capture_output=True, text=True,
+                                 timeout=300)
+    lat = [x for r in results for x in r[0]]
+    got = [t for r in results for t in r[1]]
+    check(launched == expect, f"service: {SERVICE_SESSIONS} sessions "
+          f"launched {launched}, the queries alone {expect}")
+    check(len(got) == len(want) and all(
+        _same_table(a, b) for a, b in zip(got, want)),
+          "service: a reply differs from the device='cpu' server's")
+    check(metrics.returncode == 0
+          and "bullion_serve_queries" in metrics.stdout,
+          f"service: metrics --socket exit {metrics.returncode}: "
+          f"{metrics.stderr[-400:]}")
+
+    # the two fscks at once, each a process of its own
+    bad = os.path.join(tmp, "ads_flipped.bln")
+    shutil.copyfile(ads, bad)
+    _flip_page_byte(bad)
+    t1 = time.perf_counter()
+    procs = {name: (subprocess.Popen(cli + ["fsck", "--json", path], env=env,
+                                     stdout=subprocess.PIPE, text=True), want)
+             for name, path, want in (("clean", ads, 0), ("flipped", bad, 1))}
+    fsck = {}
+    try:
+        for name, (proc, want_exit) in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            report = json.loads(out)
+            fsck[name] = dict(exit=proc.returncode, errors=report["errors"],
+                              checks=sum(s["checks"]
+                                         for s in report["shards"]),
+                              seconds=time.perf_counter() - t1)
+            check(proc.returncode == report["exit"] == want_exit,
+                  f"service: fsck --json of the {name} table exited "
+                  f"{proc.returncode}, expected {want_exit}")
+    finally:
+        for proc, _ in procs.values():
+            proc.kill()
+            proc.wait()
+    os.remove(bad)
+    by_kind = {}
+    for (kind, _), c in zip(kinds, solo):
+        by_kind.setdefault(kind, []).append(
+            [c["range_mask"], c["dequant_packed"]])
+    emit("service", table="ads", rows=int(len(users)),
+         sessions=SERVICE_SESSIONS, queries=len(lat),
+         mix={k: len(v) for k, v in by_kind.items()},
+         queries_per_s=len(lat) / wall, wall_s=wall,
+         p50_ms=float(np.percentile(lat, 50)) * 1e3,
+         p99_ms=float(np.percentile(lat, 99)) * 1e3,
+         p50_ms_by_kind={k: float(np.median([x for (kk, _), x in
+                                             zip(kinds, lat) if kk == k]))
+                         * 1e3 for k in by_kind},
+         rows_by_kind={k: int(np.mean([len(next(iter(t.values())))
+                                       for (kk, _), t in zip(kinds, got)
+                                       if kk == k])) for k in by_kind},
+         launches=launched, launches_alone_by_kind={
+             k: {"range_mask": sorted({x[0] for x in v}),
+                 "dequant_packed": sorted({x[1] for x in v})}
+             for k, v in by_kind.items()},
+         plan_cache=stats["plan_cache"], errors=stats["errors"],
+         equal_to_cpu_server=True, metrics_lines=len(
+             metrics.stdout.splitlines()), fsck=fsck, setup_s=setup_s)
+    return launched
 
 
 def scan_paths(tmp: str) -> dict:
@@ -3065,6 +3577,7 @@ def main(argv=None) -> int:
     try:
         scan_launches, dequant_launches = timed("scan", phase_scan,
                                                 args.seed, tmp)
+        service_launches = timed("service", phase_service, args.seed, tmp)
         compliance_launches, victims = timed("compliance", phase_compliance,
                                              tmp)
         sink_launches = timed("sink", phase_sink, tmp, victims)
@@ -3077,7 +3590,8 @@ def main(argv=None) -> int:
                              "dequant_packed": dequant_launches},
                 **{f"compliance_{case}": launched for case, launched
                    in compliance_launches.items()},
-                "sink": sink_launches, "loader": loader_launches}
+                "sink": sink_launches, "loader": loader_launches,
+                "service": service_launches}
     train_row, train_bwd_ms = phase_train_times(args.seed)
     print(json.dumps({"kernels": [
         dict(name="flash_attention", route="cuda", body="wgmma",
@@ -3103,6 +3617,15 @@ def main(argv=None) -> int:
                           max_abs_err=family_err["mla"]["wgmma"],
                           mma_max_abs_err=family_err["mla"]["mma"],
                           **family_rows["mla"]),
+             whisper_enc=dict(body="wgmma", arch="whisper-base",
+                              causal=False,
+                              shape=[WHISPER_ENC[k] for k in
+                                     "B H Hkv S D".split()],
+                              launches=family_launches["whisper_base"],
+                              max_abs_err=family_err["whisper_enc"]["wgmma"],
+                              mma_max_abs_err=family_err["whisper_enc"][
+                                  "mma"],
+                              **family_rows["whisper_enc"]),
              rg_local=dict(body="wgmma", arch="recurrentgemma-9b",
                            window=RG_LOCAL["window"],
                            shape=[RG_LOCAL[k] for k in

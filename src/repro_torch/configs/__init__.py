@@ -1,9 +1,8 @@
 """Architecture registry: ``get(name)`` -> full ModelConfig,
 ``get_smoke(name)`` -> reduced same-family config for CPU tests.
 
-Only the architectures whose blocks the port runs have a config module here;
-the others raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+Every architecture of the reference has a config module here, field-equal
+to the reference's.
 """
 
 from __future__ import annotations
@@ -17,14 +16,6 @@ ARCHS = (
     "starcoder2_15b", "mixtral_8x22b", "deepseek_moe_16b",
     "recurrentgemma_9b", "chameleon_34b",
 )
-
-PORTED = ("llama3_2_1b", "gemma3_12b", "starcoder2_15b", "chameleon_34b",
-          "deepseek_moe_16b", "mixtral_8x22b", "minicpm3_4b",
-          "recurrentgemma_9b", "rwkv6_7b")
-# the ROADMAP.md item that ports each of the others
-_LATER = {
-    "whisper_base": "enc-dec + whisper-base",
-}
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 _ALIAS.update({
@@ -40,10 +31,6 @@ def _module(name: str):
     key = _ALIAS.get(name, name)
     if key not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_ALIAS)}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported yet: its blocks come with the "
-            f"{_LATER[key]} item of ROADMAP.md")
     return import_module(f".{key}", __package__)
 
 
@@ -55,4 +42,4 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke()
 
 
-__all__ = ["ARCHS", "PORTED", "SHAPES", "ShapeConfig", "get", "get_smoke"]
+__all__ = ["ARCHS", "SHAPES", "ShapeConfig", "get", "get_smoke"]

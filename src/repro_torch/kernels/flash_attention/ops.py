@@ -4,8 +4,9 @@
 (``repro.kernels.flash_attention.ops``); ``attention`` is the layout-free
 entry the model uses, on ``[B, S, H, D]`` views. A CUDA tensor launches the
 kernel (and adds one to ``flash_attention.launches``, to the launched
-body's entry of ``flash_attention.launches_by_body`` and to the window's
-entry of ``flash_attention.launches_by_window``, 0 for none); a CPU
+body's entry of ``flash_attention.launches_by_body``, to the window's
+entry of ``flash_attention.launches_by_window``, 0 for none, and to the
+causal flag's of ``flash_attention.launches_by_causal``); a CPU
 tensor takes the plain version, ``attention_ref``. Nothing falls back from
 the kernel.
 
@@ -42,6 +43,8 @@ def _launch(q, k, v, *, causal, window, kv_len, body):
     flash_attention.launches_by_body[used] += 1
     by_window = flash_attention.launches_by_window
     by_window[window] = by_window.get(window, 0) + 1
+    by_causal = flash_attention.launches_by_causal
+    by_causal[causal] = by_causal.get(causal, 0) + 1
     return out
 
 
@@ -120,3 +123,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
 flash_attention.launches_by_window = {}
+flash_attention.launches_by_causal = {}

@@ -3,8 +3,10 @@
 ``load_jax_params(model, tree)`` takes the reference's parameter tree as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and copies it into the
 port's ``Model``. The reference stacks each block over a leading ``layers``
-axis (``segments[si]["b{j}"]``); here each layer is its own module, so
-``segments.si.bj.<leaf>[i]`` becomes ``segments.si.bj.i.<leaf>``. Layouts
+axis (``segments[si]["b{j}"]``, and an encoder-decoder's ``enc_blocks`` and
+``dec_blocks``); here each layer is its own module, so
+``segments.si.bj.<leaf>[i]`` becomes ``segments.si.bj.i.<leaf>`` and
+``enc_blocks.<leaf>[i]`` becomes ``enc_blocks.i.<leaf>``. Layouts
 are kept as they are (``wq [d, H, D]``, ``wo [H, D, d]``, ``embed [V, d]``).
 ``stack_leaves`` is the inverse: the port's per-layer tensors restacked into
 the reference's tree, as checkpoints and the optimizer's state store them.
@@ -14,6 +16,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+# the reference's stacked subtrees: their key path's length before the layer
+# index of a port parameter name
+_STACKED = {"segments": 3, "enc_blocks": 1, "dec_blocks": 1}
 
 
 def _flatten(tree, prefix: str = ""):
@@ -33,8 +39,9 @@ def jax_leaves(tree) -> dict[str, np.ndarray]:
     out = {}
     for path, arr in _flatten(tree):
         parts = path.split(".")
-        if parts[0] == "segments":
-            head, rest = ".".join(parts[:3]), ".".join(parts[3:])
+        if parts[0] in _STACKED:
+            n = _STACKED[parts[0]]
+            head, rest = ".".join(parts[:n]), ".".join(parts[n:])
             for i in range(arr.shape[0]):
                 out[f"{head}.{i}.{rest}"] = arr[i]
         else:
@@ -64,17 +71,20 @@ def load_jax_params(model: torch.nn.Module, tree) -> None:
 def reference_key(name: str) -> tuple[list[str], int | None]:
     """A port parameter name as (the reference's key path, layer index):
     ``segments.0.b0.3.attn.wq`` -> (["segments", "0", "b0", "attn", "wq"],
-    3); ``final_norm.scale`` -> (["final_norm", "scale"], None)."""
+    3); ``dec_blocks.2.mlp.w_up`` -> (["dec_blocks", "mlp", "w_up"], 2);
+    ``final_norm.scale`` -> (["final_norm", "scale"], None)."""
     parts = name.split(".")
-    if parts[0] == "segments":
-        return parts[:3] + parts[4:], int(parts[3])
+    if parts[0] in _STACKED:
+        n = _STACKED[parts[0]]
+        return parts[:n] + parts[n + 1:], int(parts[n])
     return parts, None
 
 
 def stack_leaves(named) -> dict:
     """``{port parameter name: tensor or array}`` -> the reference's tree
-    of numpy arrays, ``segments[si]["b{j}"][<leaf>]`` stacked over layers
-    (the inverse of ``jax_leaves``). Raises on a missing layer."""
+    of numpy arrays, ``segments[si]["b{j}"][<leaf>]`` (and ``enc_blocks``/
+    ``dec_blocks[<leaf>]``) stacked over layers (the inverse of
+    ``jax_leaves``). Raises on a missing layer."""
     layers: dict[tuple, dict[int, np.ndarray]] = {}
     tree: dict = {}
     for name, x in named.items():

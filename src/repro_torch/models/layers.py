@@ -1,6 +1,7 @@
 """Transformer layers as plain functions on tensors, ported from
-``repro.models.layers``: RMSNorm, LayerNorm, RoPE, GQA attention (full,
-sliding-window, local), SwiGLU and GELU MLPs.
+``repro.models.layers``: RMSNorm, LayerNorm, RoPE and the sinusoidal
+position table, GQA attention (full, sliding-window, local) and the
+cross-attention declaration, SwiGLU and GELU MLPs.
 
 Parameters are dict-like (a plain dict of tensors or a ``ParamTree``) and
 keep the JAX layouts: ``wq [d, H, D]``, ``wo [H, D, d]``, ``w_gate [d, ff]``.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,6 +65,15 @@ def rope(x, positions, theta: float = 10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int) -> np.ndarray:
+    """[seq, d] f32: sin then cos of pos / 10000^(2i/d), i < d/2."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angles = pos / np.power(10000.0, 2 * i / d)
+    return np.concatenate([np.sin(angles), np.cos(angles)],
+                          axis=-1).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +164,10 @@ def attn_out(p, o):
     """o [B, S, H, D] -> [B, S, d] through wo [H, D, d]."""
     wo = p["wo"]
     return o.flatten(-2) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
+
+
+def cross_attention_decl(d: int, n_heads: int, head_dim: int) -> dict:
+    return attention_decl(d, n_heads, n_heads, head_dim)
 
 
 # ---------------------------------------------------------------------------

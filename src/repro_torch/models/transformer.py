@@ -101,11 +101,11 @@ def block_decl(cfg: ModelConfig, block: str) -> dict:
 
 def model_decl(cfg: ModelConfig) -> dict:
     """The reference's declaration with each stacked block unstacked into a
-    list of per-layer declarations."""
+    list of per-layer declarations; an encoder-decoder's for a config with
+    an ``encoder`` (``models/encdec.py``)."""
     if cfg.encoder is not None:
-        raise NotImplementedError(
-            "encoder-decoder is not ported yet: the enc-dec + whisper-base "
-            "item of ROADMAP.md")
+        from .encdec import encdec_decl      # encdec imports this module
+        return encdec_decl(cfg)
     decl: dict = {
         "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), init="embed",
                    scale=0.02),

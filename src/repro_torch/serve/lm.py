@@ -31,17 +31,19 @@ class ServeEngine:
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
                  frames: Optional[np.ndarray] = None) -> dict:
-        """prompts: int32[B, P], all of one length. Returns the greedy
-        continuation int32[B, max_new_tokens] and the phases' wall times."""
-        if frames is not None:
-            raise NotImplementedError(
-                "encoder-decoder inputs (frames) are not ported yet: the "
-                "enc-dec + whisper-base item of ROADMAP.md")
+        """prompts: int32[B, P], all of one length; ``frames``: the
+        encoder-decoder's frame embeddings [B, S_enc, d] (copied to the
+        device with the prompts, before the prefill's clock starts). Returns the
+        greedy continuation int32[B, max_new_tokens] and the phases' wall
+        times."""
         B, _ = prompts.shape
         with torch.inference_mode():
             cache = self.model.init_cache(B, self.max_seq, dtype=torch.float32)
             batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int64),
                                                device=self.device)}
+            if frames is not None:
+                batch["frames"] = torch.as_tensor(np.asarray(frames),
+                                                  device=self.device)
             self._sync()
             t0 = time.perf_counter()
             logits, cache = self.model.prefill(batch, cache)

@@ -127,7 +127,7 @@ def _names(arch):
                    jconfigs.get(arch).name})
 
 
-@pytest.mark.parametrize("name", [n for a in tconfigs.PORTED
+@pytest.mark.parametrize("name", [n for a in tconfigs.ARCHS
                                   for n in _names(a)])
 def test_config_matches_reference(name):
     assert dataclasses.asdict(tconfigs.get(name)) == \
@@ -136,7 +136,7 @@ def test_config_matches_reference(name):
         dataclasses.asdict(jconfigs.get_smoke(name))
 
 
-@pytest.mark.parametrize("arch", tconfigs.PORTED)
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_param_counts_full_configs(arch):
     """The full configs declare the reference's parameters, leaf for leaf
     (declarations only: nothing is allocated)."""
@@ -154,9 +154,10 @@ def _unstacked_shapes(jdecl):
     for path, p in jax.tree_util.tree_flatten_with_path(
             jdecl, is_leaf=is_decl)[0]:
         keys = [str(getattr(k, "key", getattr(k, "idx", k))) for k in path]
-        if keys[0] == "segments":
+        n = {"segments": 3, "enc_blocks": 1, "dec_blocks": 1}.get(keys[0])
+        if n is not None:
             for i in range(p.shape[0]):
-                out[".".join(keys[:3] + [str(i)] + keys[3:])] = p.shape[1:]
+                out[".".join(keys[:n] + [str(i)] + keys[n:])] = p.shape[1:]
         else:
             out[".".join(keys)] = p.shape
     return out

@@ -279,13 +279,18 @@ def test_dequant_columns_defaults_to_cuda():
 
 
 SLICE_MODULES = ("obs/export.py", "obs/expose.py", "core/deletion.py",
-                 "dataset/sink.py", "core/multimodal.py", "data/loader.py")
+                 "dataset/sink.py", "core/multimodal.py", "data/loader.py",
+                 "models/encdec.py", "configs/whisper_base.py",
+                 "serve/wire.py", "serve/client.py", "serve/server.py",
+                 "cli.py", "testing/__init__.py", "testing/chaos.py",
+                 "testing/objstore.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
 def test_import_guard_covers_the_slice_modules(rel):
-    """The compliance, sink, export and loader modules are the port's own
-    copies: the guard above reads them, and they import no reference."""
+    """The compliance, sink, export, loader, enc-dec, dataset-service, CLI
+    and fault-injection modules are the port's own copies: the guard above
+    reads them, and they import no reference."""
     path = PORT / rel
     assert path in FILES
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -293,11 +298,15 @@ def test_import_guard_covers_the_slice_modules(rel):
 
 
 @pytest.mark.parametrize("rel", ["dataset/core.py", "obs/trace.py",
-                                 "obs/export.py"])
+                                 "obs/export.py", "models/zoo.py",
+                                 "models/transformer.py", "serve/lm.py",
+                                 "configs/__init__.py", "models/encdec.py",
+                                 "serve/server.py", "cli.py"])
 def test_no_stub_is_left(rel):
-    """``Dataset.profile``/``write_to``/``delete_where`` and the
-    ``BULLION_TRACE`` export are implemented: nothing raises
-    NotImplementedError there."""
+    """``Dataset.profile``/``write_to``/``delete_where``, the
+    ``BULLION_TRACE`` export, the encoder-decoder (``frames`` in the model
+    and the engine, whisper-base's config) and the dataset service are
+    implemented: nothing raises NotImplementedError there."""
     tree = ast.parse((PORT / rel).read_text())
     raised = [ast.dump(n.exc) for n in ast.walk(tree)
               if isinstance(n, ast.Raise) and n.exc is not None]
@@ -341,6 +350,37 @@ def test_slice_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         quality_filtered_read(meta, ["quality"], 1.0)
     assert not os.path.exists(tmp_path / "out2")
+
+
+def test_encdec_and_dataset_server_default_to_cuda(tmp_path):
+    """whisper-base's ``Model``, and ``DatasetServer``, run on the card
+    unless given "cpu"; the CLI and the chaos tools take no device."""
+    import inspect
+    import repro_torch.configs as configs
+    from repro_torch import cli
+    from repro_torch.models.zoo import build
+    from repro_torch.serve import DatasetServer
+    from repro_torch.testing import chaos
+    cfg = configs.get_smoke("whisper_base")
+    build(cfg, device="cpu")
+    DatasetServer({}, device="cpu").close()
+    assert "device" not in inspect.signature(cli.main).parameters
+    assert "device" not in inspect.signature(chaos).parameters
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DatasetServer({})
+
+
+def test_chaos_patches_the_port_backend_module():
+    """``testing/chaos.py`` installs itself through the port's backend
+    registry and clears the port's footer cache (ast: its imports are
+    relative, to ``core.backend`` and ``dataset.source``)."""
+    tree = ast.parse((PORT / "testing" / "chaos.py").read_text())
+    rel = {(n.level, n.module) for n in ast.walk(tree)
+           if isinstance(n, ast.ImportFrom) and n.level}
+    assert {(2, "core"), (2, "core.backend"), (2, "dataset.source")} <= rel
 
 
 def test_training_entry_points_default_to_cuda(tmp_path):

@@ -47,11 +47,25 @@ def test_generate_past_max_seq_raises(engines):
         teng.generate(np.zeros((1, 60), np.int32), max_new_tokens=8)
 
 
-def test_frames_not_ported(engines):
-    _, teng = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        teng.generate(np.zeros((1, 4), np.int32), 2,
-                      frames=np.zeros((1, 8, 4), np.float32))
+def test_generate_with_frames_matches_jax_engine():
+    """An encoder-decoder served with ``frames``: whisper's smoke config at
+    f32, greedy tokens equal to the reference engine's."""
+    jcfg = jconfigs.get_smoke("whisper_base").scaled(compute_dtype="float32")
+    jm = jzoo.build(jcfg)
+    params = jm.init(jax.random.PRNGKey(3))
+    tm = tzoo.build(tconfigs.get_smoke("whisper_base").scaled(
+        compute_dtype="float32"), device="cpu")
+    load_jax_params(tm, jax.tree.map(np.asarray, params))
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, jcfg.vocab, (3, 4)).astype(np.int32)
+    frames = rng.normal(size=(3, jcfg.encoder.seq, jcfg.d_model)).astype(
+        np.float32)
+    ref = JaxServeEngine(jm, params, max_seq=16).generate(
+        prompts, max_new_tokens=7, frames=frames)
+    out = ServeEngine(tm, max_seq=16, device="cpu").generate(
+        prompts, max_new_tokens=7, frames=frames)
+    assert out["tokens"].shape == (3, 7)
+    assert np.array_equal(out["tokens"], ref["tokens"])
 
 
 def test_engine_device_must_match_model(engines):

@@ -154,11 +154,24 @@ def test_remat_on_matches_remat_off(monkeypatch):
     assert _max_err(on, off) == 0.0
 
 
-def test_frames_raise():
-    _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="frames"):
-        tm.loss({"tokens": np.zeros((1, 4), np.int32),
-                 "frames": np.zeros((1, 4, 8), np.float32)})
+def test_loss_with_frames_matches_reference():
+    """``Model.loss`` of an encoder-decoder, its batch carrying
+    ``frames``: whisper's smoke config at f32 against the reference's
+    loss within 1e-6, as tests/test_torch_encdec.py holds it."""
+    jcfg = jconfigs.get_smoke("whisper_base").scaled(compute_dtype="float32")
+    jm = jzoo.build(jcfg)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(5)))
+    tm = tzoo.build(tconfigs.get_smoke("whisper_base").scaled(
+        compute_dtype="float32"), device="cpu")
+    load_jax_params(tm, params)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, jcfg.vocab, (2, 9)).astype(np.int32),
+             "frames": rng.normal(size=(2, jcfg.encoder.seq, jcfg.d_model)
+                                  ).astype(np.float32)}
+    want = float(jm.loss(params, jax.tree.map(jnp.asarray, batch)))
+    with torch.no_grad():
+        got = float(tm.loss(batch))
+    assert abs(got - want) < 1e-6, (got, want)
 
 
 @pytest.mark.parametrize("compute", ["bfloat16"])
