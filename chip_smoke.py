@@ -29,6 +29,10 @@ filter and dequantize in the same kernels. Training: ``make_train_step``
 on full-width, full-depth llama3.2-1b at f32 (B=8, S=512) from a Bullion
 corpus through ``BullionLoader``, every attention forward (and its
 recompute under rematerialisation) in the flash kernel under autograd.
+The distributed path: the same step through ``build(cfg,
+dist=make_dist(mesh))`` on a (1, 1) ("data", "model") DeviceMesh over NCCL,
+DTensor parameters placed by the port's sharding rules, the flash kernel
+launched on each rank's local shards under ``local_map``.
 Phases, one JSON line each:
 
   1. device         -- CUDA, compute capability 9.x, the card's name and
@@ -196,7 +200,24 @@ Phases, one JSON line each:
                        at bf16 compute (all wgmma); the launcher at --smoke
                        to step 6, then resumed to 8; a restored step equal
                        to the uninterrupted one
- 24. train_times    -- flash attention at the training shape (f32, simt)
+ 24. distributed    -- NCCL at world size 1, the port's (1, 1) mesh:
+                       full-width, full-depth llama3.2-1b at f32 on phase
+                       train's first batch, sharded (DTensor parameters),
+                       3 steps: step_ms, the median of steps 2-3, peak
+                       memory, flash launches (32 a step, all simt, on
+                       local shards under local_map), one more step
+                       traced by kernel (busy share); the loss and every
+                       parameter after one step against the unsharded
+                       step (2e-4; one layer held where depth amplifies
+                       rounding past it, the full-depth gap printed);
+                       the sharded parameters saved and restored by
+                       elastic_restore into another model (bit-equal,
+                       placed by spec_tree) and one more step of each;
+                       deepseek-moe-16b at full width and 2 layers, the
+                       sharded MoE path's loss against the local path's
+                       (2e-3); rwkv6-7b at full width and one layer, the
+                       sharded loss against the unsharded (1e-5 relative)
+ 25. train_times    -- flash attention at the training shape (f32, simt)
                        against its bound, its plain version and SDPA, warm
                        and cold; the plain backward's device time
 
@@ -3083,7 +3104,7 @@ def phase_train(seed: int, tmp: str) -> dict:
              grad_norm=norms[-1], lr=float(metrics["lr"]))
     launched = counts()
     by_body = dict(flash_attention.launches_by_body)
-    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated()
     want = 2 * cfg.n_layers * TRAIN["steps"]
     check(launched == dict(flash_attention=want, range_mask=0, dequant=0,
                            dequant_packed=0, bitunpack=0),
@@ -3194,6 +3215,272 @@ def phase_train(seed: int, tmp: str) -> dict:
     launcher = _train_launcher(seed, tmp)
     return dict(row, launches=launched["flash_attention"],
                 bf16_launches=bwant, launcher=launcher)
+
+
+# ---------------------------------------------------------------------------
+# phase distributed: the sharded training step on a (1, 1) NCCL mesh
+# ---------------------------------------------------------------------------
+
+DIST = dict(steps=3, step_tol=2e-4, moe_tol=2e-3, rwkv_rel_tol=1e-5,
+            moe_layers=2, rwkv_layers=1)
+
+
+def _dist_group(tmp: str):
+    """The process group (NCCL on the card, through a FileStore in ``tmp``)
+    and the port's (1, 1) ("data", "model") mesh over it."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.cuda.set_device(0)
+    store = tdist.FileStore(os.path.join(tmp, "dist_store"), 1)
+    tdist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    return make_test_mesh(1, 1)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+def _param_gap(model, want: dict) -> tuple[float, str]:
+    """The largest |parameter - want| over the model, and where."""
+    gap, where = 0.0, ""
+    for name, p in model.named_parameters():
+        g = (_whole(p) - want[name]).abs().max().item()
+        if g >= gap:
+            gap, where = g, name
+    return gap, where
+
+
+def _dist_step_pair(cfg, seed, batch, mesh, steps: int,
+                    profile: bool = False):
+    """One step of the unsharded model, then ``steps`` of the sharded one
+    from the same parameters and batch; the unsharded model is freed before
+    the sharded one is built. Returns (the sharded model, its losses, the
+    unsharded loss, the largest parameter gap after one step and where,
+    the step times (ms), the launches of the sharded steps, flash's by
+    body, the peak memory). ``profile``: then one more step traced by
+    kernel, its line emitted."""
+    from repro_torch.distributed import make_dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.zoo import build
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    m0 = build(cfg, device="cuda", seed=seed)
+    s0 = make_train_step(m0, AdamWConfig(**TRAIN_OPT), device="cuda")
+    loss0 = float(s0(adamw_init(m0), {"tokens": batch})["loss"])
+    want = {k: p.detach().clone() for k, p in m0.named_parameters()}
+    del m0, s0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, device="cuda", seed=seed, dist=make_dist(mesh))
+    opt = adamw_init(model)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, ms, gap = [], [], None
+    for i in range(steps):                               # the main path
+        t0 = time.perf_counter()
+        losses.append(float(step(opt, {"tokens": batch})["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            gap = _param_gap(model, want)
+            del want
+    launched = counts()
+    by_body = dict(flash_attention.launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        emit("distributed", profile="one_step",
+             **_train_profile(step, opt, batch))
+    return model, losses, loss0, gap, ms, launched, by_body, peak
+
+
+def _dist_moe(seed: int, mesh, B: int, S: int) -> dict:
+    """deepseek-moe-16b at full width, a dense and a MoE layer, f32, with
+    capacity for every pair: the loss through the sharded path (the rank's
+    chunk slice, psum over 'model') against the local path."""
+    import repro_torch.configs as configs
+    from repro_torch.distributed import make_dist
+    from repro_torch.models.moe import sharded_route
+    from repro_torch.models.zoo import build
+    base = configs.get("deepseek_moe_16b")
+    cfg = base.scaled(compute_dtype="float32",
+                      capacity_factor=base.n_experts / base.top_k,
+                      segments=((("full:swiglu",), 1),
+                                (("full:moe",), DIST["moe_layers"] - 1)))
+    toks = torch.randint(0, cfg.vocab, (B, S + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    local = build(cfg, device="cuda", seed=seed)
+    with torch.no_grad():
+        want = float(local.loss({"tokens": toks}))
+    del local
+    model = build(cfg, device="cuda", seed=seed, dist=make_dist(mesh))
+    route = sharded_route(model.segments[1].b0[0].moe, model.dist)
+    zero_counts()
+    with torch.no_grad():
+        got = float(model.loss({"tokens": toks}))
+    launched = counts()["flash_attention"]
+    del model
+    row = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, seq=S,
+               capacity_factor=cfg.capacity_factor, sharded_route=route,
+               loss_sharded=got, loss_local=want, gap=abs(got - want),
+               tol=DIST["moe_tol"], flash_launches=launched)
+    emit("distributed", check="moe_sharded_vs_local", **row)
+    check(route, "deepseek-moe-16b on the (1, 1) mesh took the local path")
+    check(abs(got - want) < DIST["moe_tol"],
+          f"sharded MoE loss {got} vs local {want}")
+    check(launched == cfg.n_layers,
+          f"the MoE model's loss launched flash {launched} times, expected "
+          f"{cfg.n_layers} (one a layer, on local shards)")
+    return row
+
+
+def _dist_rwkv(seed: int, mesh, B: int, S: int) -> dict:
+    """rwkv6-7b at full width and one layer, f32: the loss under the mesh
+    (the WKV recurrence on local heads) against the unsharded loss."""
+    import repro_torch.configs as configs
+    from repro_torch.distributed import make_dist
+    from repro_torch.models.zoo import build
+    cfg = configs.get("rwkv6_7b").scaled(
+        compute_dtype="float32",
+        segments=((("rwkv:none",), DIST["rwkv_layers"]),))
+    toks = torch.randint(0, cfg.vocab, (B, S + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    losses = []
+    for dist in (None, make_dist(mesh)):
+        m = build(cfg, device="cuda", seed=seed, dist=dist)
+        with torch.no_grad():
+            losses.append(float(m.loss({"tokens": toks})))
+        del m
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    row = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, seq=S,
+               loss_sharded=losses[1], loss_unsharded=losses[0], rel_gap=rel,
+               tol=DIST["rwkv_rel_tol"])
+    emit("distributed", check="rwkv_sharded_vs_unsharded", **row)
+    check(rel < DIST["rwkv_rel_tol"], f"sharded RWKV loss {losses}")
+    return row
+
+
+def _dist_elastic(seed, cfg, model, batch, mesh, tmp) -> dict:
+    """Save the sharded parameters with ``CheckpointManager``, restore them
+    with ``elastic_restore`` onto the mesh into a model of another seed:
+    bit-equal, placed as ``spec_tree`` asks; then one step of each from a
+    fresh optimizer state: finite, the same loss, and parameters within
+    the step bound (the embedding's gradient sums in any order)."""
+    from repro_torch.distributed import make_dist
+    from repro_torch.distributed.placement import placements
+    from repro_torch.models.base import by_name, spec_tree
+    from repro_torch.models.zoo import build
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.elastic import elastic_restore
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(os.path.join(tmp, "dist_ckpt"), keep=1)
+    mgr.save(DIST["steps"] + 1, model)     # the timed steps and the traced one
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = build(cfg, device="cuda", seed=seed + 1,
+                  dist=make_dist(mesh))
+    _, manifest = elastic_restore(mgr, fresh, fresh.decl, mesh)
+    restore_s = time.perf_counter() - t0
+    specs = spec_tree(fresh.decl, fresh.dist.rules, mesh)
+    old = dict(model.named_parameters())
+    equal, placed = True, True
+    for name, p in fresh.named_parameters():
+        placed &= tuple(p.placements) == placements(by_name(specs, name),
+                                                    mesh)
+        equal &= bool(torch.equal(p.to_local(), old[name].to_local()))
+    del old
+    after = []
+    for m in (model, fresh):
+        s = make_train_step(m, AdamWConfig(**TRAIN_OPT), device="cuda")
+        after.append(float(s(adamw_init(m), {"tokens": batch})["loss"]))
+        del s
+    gap, where = _param_gap(fresh, {k: _whole(p) for k, p in
+                                    model.named_parameters()})
+    row = dict(step=manifest["step"], bit_equal=equal, placed=placed,
+               save_s=save_s, restore_s=restore_s,
+               next_loss_uninterrupted=after[0], next_loss_restored=after[1],
+               next_step_param_gap=gap)
+    emit("distributed", check="elastic_restore", **row)
+    check(equal and placed, f"elastic restore: bit-equal {equal}, "
+          f"placed {placed}")
+    check(all(math.isfinite(x) for x in after) and after[0] == after[1]
+          and gap < DIST["step_tol"], f"restored step {after}, parameter "
+          f"gap {gap} at {where}")
+    return row
+
+
+def phase_distributed(seed: int, tmp: str) -> dict:
+    """The sharded training step through ``build(cfg, dist=make_dist(mesh))``
+    and ``make_train_step`` on a (1, 1) ("data", "model") mesh over NCCL:
+    full-width, full-depth llama3.2-1b at f32 on phase train's first batch,
+    DIST["steps"] steps (32 flash launches a step, all simt, on each rank's
+    local shards under local_map), the loss and every parameter after one
+    step against the unsharded step (at one layer where the random init's
+    depth amplifies rounding past the bound, the full-depth gap printed as
+    a witness); deepseek-moe-16b's sharded MoE path against the local one;
+    rwkv6-7b's sharded loss; an elastic restore of the sharded parameters.
+    Returns the phase's row, with the sharded steps' flash launches."""
+    import torch.distributed as tdist
+    from repro_torch.data import BullionLoader, write_lm_corpus
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    cfg = _train_cfg()
+    corpus = os.path.join(tmp, "dist_corpus.bln")
+    write_lm_corpus(corpus, vocab=cfg.vocab, seed=seed, **TRAIN_CORPUS)
+    loader = BullionLoader(corpus, batch_size=B, seq_len=S, device="cuda")
+    batch = next(iter(loader))[0]
+    loader.close()
+    os.unlink(corpus)
+    mesh = _dist_group(tmp)
+    try:
+        (model, losses, loss0, (gap, where), ms, launched, by_body,
+         peak) = _dist_step_pair(cfg, seed, batch, mesh, DIST["steps"],
+                                 profile=True)
+        torch.cuda.empty_cache()
+        want = 2 * cfg.n_layers * DIST["steps"]
+        row = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=B, seq=S,
+                   dtype="float32", mesh=dict(zip(mesh.mesh_dim_names,
+                                                  mesh.shape)),
+                   backend=tdist.get_backend(), losses=losses,
+                   step_ms=ms, dist_step_ms=float(np.median(ms[1:])),
+                   max_memory_allocated_gb=peak / 1e9,
+                   flash_launches=launched["flash_attention"],
+                   flash_launches_per_step=launched["flash_attention"]
+                   / DIST["steps"], flash_launches_by_body=by_body,
+                   loss_gap=abs(losses[0] - loss0), loss_unsharded=loss0,
+                   param_gap=gap, param_gap_at=where, tol=DIST["step_tol"])
+        emit("distributed", **row)
+        check(launched == dict(flash_attention=want, range_mask=0, dequant=0,
+                               dequant_packed=0, bitunpack=0),
+              f"the sharded steps launched {launched}, expected "
+              f"flash_attention {want} times (2 a layer a step)")
+        check(by_body == dict(simt=want, mma=0, wgmma=0),
+              f"the sharded f32 steps launched the bodies {by_body}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(abs(losses[0] - loss0) < DIST["step_tol"],
+              f"sharded loss {losses[0]} vs unsharded {loss0}")
+        if gap >= DIST["step_tol"]:
+            # the depth witness: hold one layer at full width
+            emit("distributed", depth_witness=True, n_layers=cfg.n_layers,
+                 param_gap=gap, param_gap_at=where)
+            one = cfg.scaled(segments=((("full:swiglu",), 1),))
+            m1, l1, l0, (g1, w1), *_ = _dist_step_pair(one, seed, batch,
+                                                        mesh, 1)
+            del m1
+            emit("distributed", check="one_layer", loss_gap=abs(l1[0] - l0),
+                 param_gap=g1, param_gap_at=w1, tol=DIST["step_tol"])
+            check(abs(l1[0] - l0) < DIST["step_tol"]
+                  and g1 < DIST["step_tol"],
+                  f"one layer: loss {l1[0]} vs {l0}, parameters {g1} at {w1}")
+        row["elastic"] = _dist_elastic(seed, cfg, model, batch, mesh, tmp)
+        del model
+        torch.cuda.empty_cache()
+        row["moe"] = _dist_moe(seed, mesh, B, S)
+        row["rwkv"] = _dist_rwkv(seed, mesh, B, S)
+    finally:
+        tdist.destroy_process_group()
+    return row
 
 
 def _train_launcher(seed: int, tmp: str) -> dict:
@@ -3584,6 +3871,7 @@ def main(argv=None) -> int:
         loader_launches = timed("loader", phase_loader, args.seed, tmp)
         timed("export", phase_export, tmp)
         train = timed("train", phase_train, args.seed, tmp)
+        dist = timed("distributed", phase_distributed, args.seed, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {"scan_ads": {"range_mask": scan_launches,
@@ -3599,6 +3887,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:91",
              launches=launches, max_abs_err=serve_err, **row,
              launches_by_phase={"serve": launches, "train": train["launches"],
+                                "distributed": dist["flash_launches"],
                                  **{f"families_{arch}": n for arch, n
                                     in family_launches.items()}},
              d256=dict(body="wgmma", shape=[WIDE_CASE[k] for k in

@@ -16,6 +16,13 @@ version on the CPU), its backward the plain ``attention_bwd_ref`` on every
 device, since the reference has no backward kernel either. The kernel's
 own output carries no graph, so its route raises for such an input that
 comes any other way.
+
+DTensor inputs (the sharded training step) go through ``local_map``: each
+rank launches the kernel on its local batch rows and query heads, and the
+backward flows through ``local_map`` to the same ``_Attention``. Where the
+query heads are sharded but the kv heads are replicated (GQA with fewer kv
+heads than the model axis), each rank reads the kv heads of its own query
+heads: query head h reads kv head h // (H // Hkv) in global numbering.
 """
 
 from __future__ import annotations
@@ -23,8 +30,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ... import resolve_device
+from ...distributed.placement import grad_placements
 from .kernel import BODIES, flash_attention_fwd
 from .ref import attention_bwd_ref, attention_ref
 
@@ -81,6 +91,60 @@ class _Attention(torch.autograd.Function):
         return (*(g.transpose(1, 2) for g in grads), None, None, None, None)
 
 
+def _local_range(n: int, mesh, plc, dim: int) -> tuple[int, int]:
+    """(first index, count) of this rank's slice of a tensor dim of size n
+    under placements ``plc``: DTensor's ``Shard`` splits into ceil-sized
+    chunks, mesh dims in order."""
+    lo, size = 0, n
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard) and p.dim == dim:
+            c = -(-size // mesh.size(i))
+            start = min(c * coord[i], size)
+            lo, size = lo + start, min(start + c, size) - start
+    return lo, size
+
+
+def _sharded_attention(q, k, v, causal, window, kv_len, body):
+    """``attention`` on DTensors q [B, S, H, D], k, v [B, S, Hkv, D]: the
+    kernel on each rank's batch rows (q's ``Shard(0)`` mesh dims) and query
+    heads (q's ``Shard(2)`` mesh dims), the sequence and head dim whole."""
+    mesh = q.device_mesh
+    qp, kvp = [], []
+    for pq, pk in zip(q.placements, k.placements):
+        if isinstance(pq, Shard) and pq.dim in (0, 2):
+            qp.append(pq)
+            # kv heads sharded alike, or replicated: then each rank reads
+            # the slice its query heads need
+            kvp.append(pk if pq.dim == 2 and pk == pq else
+                       Shard(0) if pq.dim == 0 else Replicate())
+        else:
+            qp.append(Replicate())
+            kvp.append(Replicate())
+    qp, kvp = tuple(qp), tuple(kvp)
+    kv_grad = grad_placements(kvp, qp)
+    H, Hkv = q.shape[2], k.shape[2]
+    q0, hq = _local_range(H, mesh, qp, 2)
+    k0, _ = _local_range(Hkv, mesh, kvp, 2)
+    # the kv heads (local numbering) that local query heads 0..hq-1 read
+    idx = [(q0 + h) // (H // Hkv) - k0 for h in range(hq)]
+
+    def local(ql, kl, vl):
+        lo, n = idx[0], idx[-1] + 1 - idx[0]
+        if hq % n == 0 and idx == [lo + h // (hq // n) for h in range(hq)]:
+            kl, vl = kl[:, :, lo:lo + n], vl[:, :, lo:lo + n]
+        else:
+            sel = torch.tensor(idx, device=kl.device)
+            kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
+        return attention(ql, kl, vl, causal=causal, window=window,
+                         kv_len=kv_len, body=body)
+
+    return local_map(local, out_placements=[*qp],
+                     in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               kv_len: Optional[int] = None, body: str = "auto"):
     """q: [B, S, H, D], k, v: [B, S, Hkv, D] -> [B, S, H, D] (contiguous).
@@ -90,10 +154,13 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``"wgmma"``, ``"mma"`` or ``"simt"`` asks for one (CUDA tensors only).
     Where an input requires grad (and grad is enabled), the call goes
     through ``_Attention``; the launch is counted each time its forward
-    runs, a recompute under checkpointing included."""
+    runs, a recompute under checkpointing included. DTensor inputs launch
+    on each rank's local shards (``_sharded_attention``)."""
     if body != "auto" and body not in BODIES:
         raise ValueError(f"unknown body {body!r}: 'auto' or one of "
                          f"{list(BODIES)}")
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal, window, kv_len, body)
     S = q.shape[1]
     kv_len = S if kv_len is None else int(kv_len)
     if kv_len < 1:

@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .base import P
 
@@ -131,10 +132,53 @@ def dot_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
     return out.reshape(B, Sq, H, D)
 
 
+class _Flat(torch.autograd.Function):
+    """A weight viewed as a matrix, ``[prod(shape[:split]),
+    prod(shape[split:])]``. For a DTensor the gradient is placed as the
+    weight's flat image (its ``Shard(0)`` and ``Shard(split)`` mesh dims
+    kept, the others replicated) before it is viewed back: DTensor's
+    backward may otherwise shard the flat dim across the split."""
+
+    @staticmethod
+    def forward(ctx, w, split):
+        ctx.shape, ctx.split = w.shape, split
+        if isinstance(w, DTensor):
+            ctx.flat = tuple(Shard(0) if p == Shard(0) else
+                             Shard(1) if p == Shard(split) else Replicate()
+                             for p in w.placements)
+        return w.reshape(math.prod(w.shape[:split]), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.flat:
+            g = g.redistribute(g.device_mesh, ctx.flat)
+        return g.reshape(ctx.shape), None
+
+
+def flat(w, split: int = 1):
+    """``w`` as a matrix split after dim ``split`` (``_Flat`` for a
+    DTensor, a plain reshape otherwise)."""
+    if isinstance(w, DTensor):
+        return _Flat.apply(w, split)
+    return w.reshape(math.prod(w.shape[:split]), -1)
+
+
 def _proj(x, w):
-    """x [..., d] times w [d, *out] -> [..., *out], in x's dtype."""
-    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(
-        -1, w.shape[1:])
+    """x [..., d] times w [d, *out] -> [..., *out], in x's dtype. For
+    DTensors the flat product is first placed as the split needs it:
+    sharded where x shards its leading (batch) dim or w its first output
+    dim, which the split keeps outermost, and replicated elsewhere (DTensor
+    may otherwise shard the flat dim across the split, e.g. replicated GQA
+    kv heads over the model axis)."""
+    y = x @ flat(w.to(x.dtype))
+    if isinstance(y, DTensor) and len(w.shape) > 2:
+        want = tuple(
+            Shard(0) if px == Shard(0) else
+            Shard(y.ndim - 1) if pw == Shard(1) else Replicate()
+            for px, pw in zip(x.placements, w.placements))
+        if tuple(y.placements) != want:
+            y = y.redistribute(y.device_mesh, want)
+    return y.unflatten(-1, w.shape[1:])
 
 
 def attn_qkv(p, x, positions, *, rope_theta=10000.0, qk_norm=False,
@@ -162,8 +206,7 @@ def attn_qkv(p, x, positions, *, rope_theta=10000.0, qk_norm=False,
 
 def attn_out(p, o):
     """o [B, S, H, D] -> [B, S, d] through wo [H, D, d]."""
-    wo = p["wo"]
-    return o.flatten(-2) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
+    return o.flatten(-2) @ flat(p["wo"].to(o.dtype), 2)
 
 
 def cross_attention_decl(d: int, n_heads: int, head_dim: int) -> dict:

@@ -1,6 +1,6 @@
-"""Mixture-of-Experts block, ported from ``repro.models.moe`` (its local,
-single-device path): token-choice top-k routing with capacity, expert
-products as batched matmuls, and the reference's chunked weight layout.
+"""Mixture-of-Experts block, ported from ``repro.models.moe``: token-choice
+top-k routing with capacity, expert products as batched matmuls, and the
+reference's chunked weight layout.
 
 Routed expert weights are stored as ``E * tp`` chunks: chunk ``e * tp + j``
 holds expert e's j-th slice of d_ff, with ``tp = M / gcd(E, M)`` for the
@@ -13,8 +13,17 @@ down-projections are summed, as the reference's ``shard_map`` path does
 (exact up to the order of the sum).
 
 The expert products are plain batched matmuls, as in the reference, which
-computes them outside any kernel too. The sharded path (``shard_map`` over a
-mesh) is the distributed item of ROADMAP.md and raises here.
+computes them outside any kernel too.
+
+On a mesh (DTensor inputs) ``moe_block`` takes the reference's sharded path
+where the model axis divides the chunks: under ``local_map`` with
+``moe_specs``' placements each rank routes its own batch rows, computes
+its contiguous slice of chunks, and ``psum`` over 'model' combines the
+partial outputs (``pmean`` of the aux loss over 'model' and the batch
+axes; a data axis that cannot split the batch computes the same block on
+every rank, and its gradients are not summed over it). Elsewhere
+every rank computes the whole block on the whole batch, as the
+reference's local path routes every token at once.
 """
 
 from __future__ import annotations
@@ -23,8 +32,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
-from .base import P
+from ..distributed.collectives import pmean, psum
+from ..distributed.placement import placements
+from .base import P, mesh_axes
 
 PRODUCTION_M = 16  # model-axis size of the reference's production mesh
 
@@ -116,18 +129,29 @@ def _dispatch(xt, idx, E: int, C: int):
     return buf.reshape(E, C, xt.shape[1]), slot, keep
 
 
-def _experts(buf, p, E: int, dtype):
-    """The routed experts' SwiGLU on buf [E, C, d] -> [E, C, d], over the
-    chunk layout: each of an expert's tp chunks computes its slice of d_ff
-    and its partial down-projection, and the partials are summed."""
+def _experts(buf, p, E: int, dtype, r: int = 0, m: int = 1):
+    """The routed experts' SwiGLU over the chunk layout, on the ``r``-th of
+    ``m`` contiguous slices of the chunks (a model axis of size m; ``p``
+    holds that slice, all of them on the local path): buf [E, C, d] ->
+    [E, C, d], zero outside the slice's experts. Each of an expert's chunks
+    computes its slice of d_ff and its partial down-projection, and the
+    partials are summed."""
     _, C, d = buf.shape
-    tp = p["wg"].shape[0] // E
-    xb = buf if tp == 1 else \
-        buf[:, None].expand(E, tp, C, d).reshape(E * tp, C, d)
+    cpr = p["wg"].shape[0]                    # chunks in the slice
+    tp = cpr * m // E                         # chunks an expert in all
+    n_exp = max(1, cpr // tp)                 # experts they cover
+    e0 = (r * cpr) // tp
+    per = cpr // n_exp                        # chunks an expert here
+    xb = buf[e0:e0 + n_exp]
+    if per > 1:
+        xb = xb.repeat_interleave(per, dim=0)
     h = torch.bmm(xb, p["wg"].to(dtype))
     u = torch.bmm(xb, p["wu"].to(dtype))
-    out = torch.bmm(F.silu(h) * u, p["wd"].to(dtype))     # [E * tp, C, d]
-    return out if tp == 1 else out.view(E, tp, C, d).sum(dim=1)
+    out = torch.bmm(F.silu(h) * u, p["wd"].to(dtype))     # [cpr, C, d]
+    if per > 1:
+        out = out.view(n_exp, per, C, d).sum(dim=1)
+    return out if n_exp == E else F.pad(out, (0, 0, 0, 0, e0,
+                                              E - e0 - n_exp))
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -136,8 +160,12 @@ def capacity(cfg, n_tokens: int) -> int:
                                 * cfg.capacity_factor)))
 
 
-def moe_apply(p, x, cfg):
-    """The MoE block over x [B, S, d] -> (y [B, S, d], aux loss)."""
+def moe_apply(p, x, cfg, *, model_axis=None, all_axes=(), mesh=None):
+    """The MoE block over x [B, S, d] -> (y [B, S, d], aux loss). With a
+    ``model_axis`` it runs on one rank's local shards of ``mesh`` (under
+    ``local_map``): ``p`` holds the rank's chunks (and its slice of the
+    shared experts' d_ff), and the outputs are summed over ``model_axis``
+    and the aux loss averaged over ``all_axes``."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -146,7 +174,13 @@ def moe_apply(p, x, cfg):
 
     w, idx, aux = _route(xt, p["router"], k)
     buf, slot, keep = _dispatch(xt, idx, E, C)
-    out = _experts(buf, p, E, x.dtype).reshape(E * C, d)
+    if model_axis is None:
+        out = _experts(buf, p, E, x.dtype)
+    else:
+        dim = list(mesh.mesh_dim_names).index(model_axis)
+        out = _experts(buf, p, E, x.dtype, mesh.get_local_rank(model_axis),
+                       mesh.size(dim))
+    out = out.reshape(E * C, d)
 
     # combine: each (token, choice) pair's output, weighted, summed over k
     gathered = torch.where(keep[:, None],
@@ -159,14 +193,86 @@ def moe_apply(p, x, cfg):
         g = xt @ sp["w_gate"].to(x.dtype)
         u = xt @ sp["w_up"].to(x.dtype)
         y = y + (F.silu(g) * u) @ sp["w_down"].to(x.dtype)
+    if model_axis is not None:
+        y = psum(y, mesh, (model_axis,))
+    if all_axes:
+        aux = pmean(aux, mesh, all_axes)
     return y.reshape(B, S, d), aux
 
 
+def moe_specs(p, cfg, mesh, batch_axes):
+    """The sharded path's specs: (the parameters' tree, x's)."""
+    xspec = (batch_axes, None, None)
+    wspec = ("model", None, None)
+    pspec = {"router": (None, None), "wg": wspec, "wu": wspec, "wd": wspec}
+    if "shared" in p:
+        pspec["shared"] = {"w_gate": (None, "model"),
+                           "w_up": (None, "model"),
+                           "w_down": ("model", None)}
+    return pspec, xspec
+
+
+def sharded_route(p, dist) -> bool:
+    """The reference's rule: the sharded path where the mesh has a 'model'
+    axis and it divides the chunks."""
+    if dist is None or dist.mesh is None:
+        return False
+    axes = mesh_axes(dist.mesh)
+    return "model" in axes and p["wg"].shape[0] % axes["model"] == 0
+
+
+_LEAVES = ("router", "wg", "wu", "wd")
+_SHARED = ("w_gate", "w_up", "w_down")
+
+
 def moe_block(p, x, cfg, dist=None):
-    """The local path; a mesh (``dist``) asks for the sharded path, which is
-    not ported."""
-    if dist is not None:
-        raise NotImplementedError(
-            "the sharded MoE path (shard_map over a mesh) is not ported yet: "
-            "the 'Distributed' item of ROADMAP.md")
-    return moe_apply(p, x, cfg)
+    """Entry point: the sharded path on a mesh where ``sharded_route``
+    allows it; the whole block on every rank on another mesh; the local
+    path for plain tensors."""
+    if not isinstance(x, DTensor):
+        return moe_apply(p, x, cfg)
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    shared = "shared" in p
+    tensors = [p[n] for n in _LEAVES]
+    if shared:
+        tensors += [p["shared"][n] for n in _SHARED]
+
+    def local(*args):
+        lp = dict(zip(_LEAVES, args[:4]))
+        if shared:
+            lp["shared"] = dict(zip(_SHARED, args[4:7]))
+        if not sharded:
+            return moe_apply(lp, args[-1], cfg)
+        return moe_apply(lp, args[-1], cfg, model_axis="model",
+                         all_axes=varying, mesh=mesh)
+
+    rep = (Replicate(),) * mesh.ndim
+    sharded = sharded_route(p, dist)
+    if not sharded:
+        # every rank the whole block: the same values, the same gradients
+        specs = [rep] * (len(tensors) + 1)
+        fn = local_map(local, out_placements=(rep, rep), in_placements=tuple(specs),
+                       in_grad_placements=tuple(specs), device_mesh=mesh,
+                       redistribute_inputs=True)
+        return fn(*tensors, x)
+    batch_axes = dist.batch_axes_for(x.shape[0])
+    pspec, xspec = moe_specs(p, cfg, mesh, batch_axes)
+    specs = [placements(pspec[n], mesh) for n in _LEAVES]
+    if shared:
+        specs += [placements(pspec["shared"][n], mesh) for n in _SHARED]
+    specs.append(placements(xspec, mesh))
+    # the axes whose ranks compute different partial outputs: 'model' (its
+    # chunk slices) and the axes x's batch is sharded over. A replicated
+    # input's gradient is a partial sum over those; on any other axis every
+    # rank computes the same block on the same rows, and its gradient is
+    # replicated. The aux loss is averaged over the same axes.
+    batch = batch_axes if isinstance(batch_axes, tuple) else \
+        (batch_axes,) if batch_axes else ()
+    varying = ("model",) + batch
+    grads = [tuple(Partial() if isinstance(q, Replicate) and a in varying
+                   else q for a, q in zip(names, sp)) for sp in specs]
+    fn = local_map(local, out_placements=(specs[-1], rep),
+                   in_placements=tuple(specs), in_grad_placements=tuple(grads),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*tensors, x)

@@ -8,15 +8,23 @@ WKV has two forms, as in the reference: ``wkv_scan``, a loop over time in
 f32 (one step a token), and ``wkv_chunked``, chunk-parallel products over
 chunks of 64 with the reference's ``-60`` clamps. Both stay plain PyTorch:
 the reference has no kernel for them.
+
+On a mesh (DTensor parameters) r, k, v and w are held at ``("batch", None,
+"heads", None)``, the time axis whole, as the reference constrains them,
+and the recurrence runs under ``local_map`` on each rank's batch rows and
+heads: one DTensor dispatch a layer instead of one an op a token.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import local_map
 
-from .base import P
-from .layers import _proj, layernorm, layernorm_decl
+from ..distributed.placement import grad_placements, placements
+from .base import P, constrain
+from .layers import _proj, flat, layernorm, layernorm_decl
 
 LORA_R = 32
 LORA_W = 64
@@ -116,17 +124,46 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 64):
     return y.to(r.dtype), S
 
 
+def _sharded_wkv(wkv, r, k, v, w, u, state, rules):
+    """``wkv`` under ``local_map`` on DTensors r, k, v, w [B, T, H, D] and
+    u [H, D]; ``state`` [B, H, D, D] a plain tensor (a cache's, whole) or
+    None (zeros). Returns (y, the final state), DTensors."""
+    spec = ("batch", None, "heads", None)
+    r, k, v, w = (constrain(t, rules, spec) for t in (r, k, v, w))
+    mesh = r.device_mesh
+    B, _, H, D = r.shape
+    plc = placements(rules.spec_for(spec), mesh, r.shape)
+    uplc = placements(rules.spec_for(("heads", None)), mesh, u.shape)
+    splc = placements(rules.spec_for(("batch", "heads", None, None)), mesh,
+                      (B, H, D, D))
+    args = [r, k, v, w, u]
+    in_plc = [plc] * 4 + [uplc]
+    if state is not None:
+        args.append(distribute_tensor(state, mesh, splc))
+        in_plc.append(splc)
+
+    def local(rl, kl, vl, wl, ul, sl=None):
+        if sl is None:
+            sl = rl.new_zeros(rl.shape[:1] + rl.shape[2:] + rl.shape[-1:],
+                              dtype=torch.float32)
+        return wkv(rl, kl, vl, wl, ul, sl)
+
+    y, s = local_map(local, out_placements=(plc, splc),
+                     in_placements=tuple(in_plc),
+                     in_grad_placements=tuple(grad_placements(i, plc)
+                                              for i in in_plc),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+    return y, s
+
+
 def rwkv_block(p, x, cache=None, *, cfg, use_chunked: bool = False,
                dist=None):
     """The full RWKV-6 layer (time mix + channel mix): x [B, T, d] -> x.
     ``cache`` ({"S", "tm_prev", "cm_prev"} of this layer, f32) is read as
     the initial state and overwritten with the final one, in place; None in
     training. ``use_chunked`` takes ``wkv_chunked`` for T > 1 with
-    T % 64 == 0, ``wkv_scan`` otherwise."""
-    if dist is not None:
-        raise NotImplementedError(
-            "sharded RWKV (sharding constraints over a mesh) is not ported "
-            "yet: the 'Distributed' item of ROADMAP.md")
+    T % 64 == 0, ``wkv_scan`` otherwise. DTensor parameters run the
+    recurrence on local shards (``_sharded_wkv``) by ``dist``'s rules."""
     B, T, d = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
 
@@ -150,16 +187,22 @@ def rwkv_block(p, x, cache=None, *, cfg, use_chunked: bool = False,
     wln = tm["w0"].float()[None, None] + wlo.reshape(B, T, H, dh).float()
     w = torch.exp(-torch.exp(wln)).to(x.dtype)                # (0, 1) decay
 
-    state = cache["S"] if cache is not None else torch.zeros(
-        (B, H, dh, dh), dtype=torch.float32, device=x.device)
     u = tm["u"].float()
-    if use_chunked and T > 1 and T % 64 == 0:
-        y, state = wkv_chunked(r, k, v, w, u, state)
+    wkv = wkv_chunked if use_chunked and T > 1 and T % 64 == 0 else wkv_scan
+    if isinstance(r, DTensor):
+        if dist is None:
+            raise ValueError("sharded RWKV needs the sharding rules (dist)")
+        y, state = _sharded_wkv(wkv, r, k, v, w, u,
+                                cache["S"] if cache is not None else None,
+                                dist.rules)
+        if cache is not None:
+            state = state.full_tensor()
     else:
-        y, state = wkv_scan(r, k, v, w, u, state)
+        state = cache["S"] if cache is not None else torch.zeros(
+            (B, H, dh, dh), dtype=torch.float32, device=x.device)
+        y, state = wkv(r, k, v, w, u, state)
     y = layernorm(tm["ln_x"], y) * F.silu(g)                 # per-head norm
-    wo = tm["wo"]
-    x = x + y.flatten(-2) @ wo.to(x.dtype).reshape(-1, wo.shape[-1])
+    x = x + y.flatten(-2) @ flat(tm["wo"].to(x.dtype), 2)
 
     # ---- channel mix ----
     cm = p["cm"]
@@ -175,8 +218,9 @@ def rwkv_block(p, x, cache=None, *, cfg, use_chunked: bool = False,
 
     if cache is not None:
         cache["S"].copy_(state)
-        cache["tm_prev"].copy_(xn[:, -1])
-        cache["cm_prev"].copy_(xn2[:, -1])
+        for name, t in (("tm_prev", xn[:, -1]), ("cm_prev", xn2[:, -1])):
+            cache[name].copy_(t.full_tensor() if isinstance(t, DTensor)
+                              else t)
     return x
 
 

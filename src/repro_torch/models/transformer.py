@@ -20,6 +20,15 @@ with a plain backward); decode attention (one query over the cache, with
 ``kv_valid``) stays plain PyTorch, as the reference leaves it to XLA
 outside any kernel. Training rematerialises each layer, as the reference's
 ``jax.checkpoint`` of its scan body does.
+
+Sharded (a ``Ctx.dist`` with a mesh, the parameters DTensors): the
+residual stream is held at ``("batch", "seq", None)`` before the layers
+and after each repeat of a segment's pattern, as the reference constrains
+it; the embedding gather runs on each rank's batch rows against the whole
+table (``_sharded_gather``); attention launches the kernel on local
+shards (``kernels.flash_attention.attention``); the MoE and RWKV blocks
+take ``dist`` (``models/moe.py``, ``models/rwkv6.py``). Every other op is
+DTensor's own.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention
@@ -36,7 +47,8 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
-from .base import P
+from ..distributed.placement import grad_placements, placements
+from .base import P, constrain
 from .config import ModelConfig
 from .layers import (attention_decl, attn_out, attn_qkv, dot_attention,
                      gelu_mlp, gelu_mlp_decl, layernorm, layernorm_decl,
@@ -194,6 +206,7 @@ class Ctx:
     mode: str = "prefill"                       # prefill | decode | train
     positions: Optional[torch.Tensor] = None    # [T]; decode: [cache_pos]
     cache_pos: int = 0                          # decode: position of the token
+    dist: object = None                         # distributed.Dist, or None
 
 
 def _rolling_pos(pos: int, W: int, device=None) -> torch.Tensor:
@@ -253,7 +266,7 @@ def apply_block(p, x, block: str, ctx: Ctx, cache=None):
     attn_kind, mlp_kind = block.split(":")
     if attn_kind == "rwkv":
         return rwkv_mod.rwkv_block(
-            p, x, cache, cfg=cfg,
+            p, x, cache, cfg=cfg, dist=ctx.dist,
             use_chunked=cfg.rwkv_chunked and ctx.mode != "decode"), 0.0
     if attn_kind == "mla":
         x = x + mla_mod.mla_attention(p["attn"], _norm(cfg, p["ln_attn"], x),
@@ -267,7 +280,7 @@ def apply_block(p, x, block: str, ctx: Ctx, cache=None):
         return x, 0.0
     xn = _norm(cfg, p["ln_mlp"], x)
     if mlp_kind == "moe":
-        y, aux = moe_mod.moe_block(p["moe"], xn, cfg)
+        y, aux = moe_mod.moe_block(p["moe"], xn, cfg, ctx.dist)
         return x + y, aux
     mlp = gelu_mlp if mlp_kind == "gelu" else swiglu
     return x + mlp(p["mlp"], xn), 0.0
@@ -278,8 +291,33 @@ def apply_block(p, x, block: str, ctx: Ctx, cache=None):
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig, dtype):
-    x = params["embed"][tokens].to(dtype)
+def _sharded_gather(embed: DTensor, tokens: torch.Tensor, rules):
+    """``embed[tokens]`` for a sharded table and a whole batch of token ids:
+    the table is gathered whole on every rank, which looks up its own
+    batch rows (``("batch", None, None)``). The table's gradient is then a
+    partial sum over the batch axes."""
+    mesh = embed.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    tok = placements(rules.spec_for(("batch", None)), mesh, tokens.shape)
+    out = placements(rules.spec_for(("batch", None, None)), mesh,
+                     (*tokens.shape, embed.shape[1]))
+    gather = local_map(lambda e, t: e[t], out_placements=[*out],
+                       in_placements=(rep, tok),
+                       in_grad_placements=(grad_placements(rep, out), tok),
+                       device_mesh=mesh, redistribute_inputs=True)
+    return gather(embed, DTensor.from_local(tokens, mesh, rep))
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig, dtype, rules=None):
+    """Token ids [B, T] -> [B, T, d] in ``dtype``; a DTensor table needs
+    the ``rules`` that place the batch."""
+    emb = params["embed"]
+    if isinstance(emb, DTensor):
+        if rules is None:
+            raise ValueError("a sharded embedding needs the sharding rules")
+        x = _sharded_gather(emb, tokens, rules).to(dtype)
+    else:
+        x = emb[tokens].to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return x
@@ -309,6 +347,9 @@ def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
         raise ValueError("decode needs a cache")
     if ctx.mode == "train" and cache is not None:
         raise ValueError("training takes no cache")
+    rules = ctx.dist.rules if ctx.dist is not None else None
+    if rules is not None:
+        x = constrain(x, rules, ("batch", "seq", None))
     aux_total = 0.0
     for si, (blocks, rep) in enumerate(cfg.segments):
         seg_params = params["segments"][si]
@@ -326,4 +367,6 @@ def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
                 else:
                     x, aux = apply_block(p, x, block, ctx, c)
                 aux_total = aux_total + aux
+            if rules is not None:
+                x = constrain(x, rules, ("batch", "seq", None))
     return _norm(cfg, params["final_norm"], x), aux_total

@@ -6,17 +6,30 @@ the encoder-decoder (``models/encdec.py``), whose batches carry ``frames``.
 ``Model`` is an ``nn.Module`` that holds its parameters; their names are the
 reference's key paths with a layer index after the block, e.g.
 ``segments.0.b0.3.attn.wq``.
+
+With a ``dist`` (``distributed.make_dist(mesh)``) each parameter is a
+DTensor on the mesh, placed by ``spec_tree(decl, dist.rules, mesh)``, and
+``loss`` runs sharded. Sharded serving (``prefill``, ``decode_step``) is
+the reference's dry-run lowering with its cache specs, which belongs to
+the "Launch analysis" item of ROADMAP.md; those raise under a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor, distribute_tensor
+
 from .. import resolve_device
+from ..distributed.placement import placements
+from ..distributed.sharding import sharded_ops
 from . import encdec as encdec_mod
 from . import transformer as tf
-from .base import ParamTree, init_tree, param_count
+from .base import (ParamTree, ShardingRules, abstract_tree, init_tree,
+                   param_count, spec_tree)
 from .config import ModelConfig
 
 
@@ -34,19 +47,60 @@ def _xent(logits, labels):
     return -logp.gather(-1, labels[..., None])[..., 0].mean()
 
 
+def _distribute(tree, specs, mesh):
+    """Each tensor of ``tree`` as a DTensor placed by its spec."""
+    if isinstance(tree, dict):
+        return {k: _distribute(tree[k], specs[k], mesh) for k in tree}
+    if isinstance(tree, list):
+        return [_distribute(t, s, mesh) for t, s in zip(tree, specs)]
+    return distribute_tensor(tree, mesh, placements(specs, mesh))
+
+
 class Model(ParamTree):
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 dist=None):
         """Parameters initialised from ``seed`` on ``device`` (default
-        ``cuda``) in ``dtype``, with the reference's init scheme."""
+        ``cuda``) in ``dtype``, with the reference's init scheme; with a
+        ``dist`` whose mesh lies on that device type, distributed over it
+        (the same values as without). On ``"meta"`` they are shapes only,
+        and a ``dist`` (whose mesh may be any object with ``axis_names``
+        and a ``shape`` mapping) only supplies ``param_specs``' rules."""
         dev = resolve_device(device)
         decl = tf.model_decl(cfg)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        super().__init__(init_tree(decl, gen, dev, dtype))
+        mesh = dist.mesh if dist is not None else None
+        if dev.type == "meta":
+            # shapes only, for analysis: nothing to place (``param_specs``
+            # says where each would go)
+            tree = abstract_tree(decl, dtype)
+            mesh = None
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            tree = init_tree(decl, gen, dev, dtype)
+        if mesh is not None:
+            if mesh.device_type != dev.type:
+                raise ValueError(f"the mesh lies on {mesh.device_type}; "
+                                 f"asked for {dev}")
+            tree = _distribute(tree, spec_tree(decl, dist.rules, mesh), mesh)
+        super().__init__(tree)
         self.cfg = cfg
         self.decl = decl
+        self.dist = dist if dist is not None and dist.mesh is not None \
+            else None
         self.is_encdec = cfg.encoder is not None
+
+    # -- params ---------------------------------------------------------------
+    def abstract_params(self, dtype=torch.float32):
+        """The parameters' shapes as ``meta`` tensors (no storage)."""
+        return abstract_tree(self.decl, dtype)
+
+    def param_specs(self):
+        """Each parameter's spec by the rules alone (no mesh)."""
+        rules = self.dist.rules if self.dist else ShardingRules(
+            embed=None, heads=None, kv_heads=None, ff=None, vocab=None,
+            experts=None, lru=None, batch=None)
+        return spec_tree(self.decl, rules)
 
     @property
     def n_params(self) -> int:
@@ -81,17 +135,35 @@ class Model(ParamTree):
         tokens = as_device_tensor(batch["tokens"], self.device).long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         T = inputs.shape[1]
-        ctx = tf.Ctx(cfg=cfg, mode="train",
+        ctx = tf.Ctx(cfg=cfg, mode="train", dist=self.dist,
                      positions=torch.arange(T, device=tokens.device))
-        x = tf.embed_tokens(params, inputs, cfg, dt)
-        if self.is_encdec:
-            enc_out = encdec_mod.encode(params, self._frames(batch), cfg, ctx)
-            ek, ev = encdec_mod.cross_kv(params, enc_out)
-            x = encdec_mod.decode_blocks(params, x, cfg, ctx, ek, ev)
-            return _xent(tf.logits_fn(params, x, cfg), labels)
-        x, aux = tf.forward(params, x, cfg, ctx)
-        return (_xent(tf.logits_fn(params, x, cfg), labels)
-                + cfg.aux_loss_weight * aux)
+        with self.sharded_ops():
+            x = tf.embed_tokens(params, inputs, cfg, dt,
+                                self.dist.rules if self.dist else None)
+            if self.is_encdec:
+                enc_out = encdec_mod.encode(params, self._frames(batch), cfg,
+                                            ctx)
+                ek, ev = encdec_mod.cross_kv(params, enc_out)
+                x = encdec_mod.decode_blocks(params, x, cfg, ctx, ek, ev)
+                loss = _xent(tf.logits_fn(params, x, cfg), labels)
+            else:
+                x, aux = tf.forward(params, x, cfg, ctx)
+                loss = (_xent(tf.logits_fn(params, x, cfg), labels)
+                        + cfg.aux_loss_weight * aux)
+            return loss.full_tensor() if isinstance(loss, DTensor) else loss
+
+    def sharded_ops(self):
+        """The context the sharded loss and its backward run in
+        (``distributed.sharding.sharded_ops``); a no-op without a mesh."""
+        return contextlib.nullcontext() if self.dist is None \
+            else sharded_ops()
+
+    def _unsharded(self, what: str) -> None:
+        if self.dist is not None:
+            raise NotImplementedError(
+                f"sharded {what} (the reference lowers it with its cache "
+                "specs in the dry run) belongs to the 'Launch analysis' item "
+                "of ROADMAP.md")
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16) -> dict:
@@ -144,6 +216,7 @@ class Model(ParamTree):
         cache), the cache extended in place. Raises once the full/global
         caches are full; a model whose attention is all windowed decodes
         without end."""
+        self._unsharded("decode")
         pos = cache["pos"]
         cap = self._capacity(cache)
         if cap is not None and pos >= cap:
@@ -161,7 +234,10 @@ class Model(ParamTree):
         return tf.logits_fn(self, x[:, 0], self.cfg), cache
 
 
-def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0) -> Model:
+def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0,
+          dist=None) -> Model:
     """A ``Model`` on ``device`` (default ``cuda``; raises where CUDA is
-    absent) with parameters in ``dtype`` (default float32)."""
-    return Model(cfg, device=device, dtype=dtype or torch.float32, seed=seed)
+    absent) with parameters in ``dtype`` (default float32), distributed
+    over ``dist.mesh`` when a ``dist`` is given."""
+    return Model(cfg, device=device, dtype=dtype or torch.float32, seed=seed,
+                 dist=dist)

@@ -10,7 +10,7 @@ import torch
 
 from .. import resolve_device
 from ..models.zoo import as_device_tensor
-from .optimizer import AdamWConfig, adamw_update
+from .optimizer import AdamWConfig, placed_like, adamw_update
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
@@ -24,7 +24,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     ``[n, B/n, ...]``, sums the loss and the grads (f32) over the
     microbatches and scales both by 1/n, as the reference's scan does.
     ``device`` (default ``cuda``; raises where CUDA is absent) is where the
-    model must lie."""
+    model must lie. A sharded model (DTensor parameters) takes its loss and
+    gradients in ``model.sharded_ops()``; each gradient comes back with
+    its parameter's placements."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"the model lies on {model.device}; asked for {dev}")
@@ -34,9 +36,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     params = dict(model.named_parameters())
 
     def value_and_grad(batch):
-        loss = model.loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), dict(zip(params, grads))
+        with model.sharded_ops():
+            loss = model.loss(batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), {k: placed_like(g, params[k])
+                               for k, g in zip(params, grads)}
 
     def grads_of(batch):
         batch = {k: as_device_tensor(x, model.device)
@@ -50,7 +54,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
         split = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])
                  for k, x in batch.items()}
         total = torch.zeros((), device=model.device)
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {k: torch.zeros_like(p, dtype=torch.float32).detach()
                for k, p in params.items()}
         for i in range(n):
             loss, grads = value_and_grad({k: x[i] for k, x in split.items()})

@@ -9,6 +9,11 @@ Parameters and state are mappings ``{port parameter name: tensor}`` (a
 ``adamw_update`` updates parameters and state in place. The step, the
 schedule and the bias corrections are f32 tensors on the parameters'
 device, so a step never waits for the card.
+
+DTensor parameters (a sharded model) keep DTensor moments with their
+placements. The update runs on each rank's local shards, after each
+gradient is redistributed to its parameter's placements; the global norm
+counts every entry once (``global_norm``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
+
+from ..distributed.collectives import mesh_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +67,7 @@ def adamw_init(params) -> dict:
     device = next(iter(p.values())).device
 
     def zeros():
-        return {k: torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return {k: torch.zeros_like(x, dtype=torch.float32).detach()
                 for k, x in p.items()}
 
     return {"m": zeros(), "v": zeros(),
@@ -67,9 +75,39 @@ def adamw_init(params) -> dict:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tensors))
+    """sqrt of the sum of squares of every entry, in f32 (0-d). DTensors
+    count each entry once: a rank adds its shard's squares only where it is
+    the first of the shard's replicas (coordinate 0 on each mesh dim that
+    does not shard the tensor), and one all-reduce over the mesh sums the
+    ranks' totals."""
+    total, mesh = None, None
+    for x in tensors:
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            if not all(isinstance(p, Shard) or c == 0 for p, c in
+                       zip(x.placements, mesh.get_coordinate())):
+                continue
+            if any(p.is_partial() for p in x.placements):
+                raise ValueError("global_norm of a partial sum")
+            x = x.to_local()
+        sq = torch.sum(torch.square(x.float()))
+        total = sq if total is None else total + sq
+    if mesh is not None:
+        if total is None:
+            total = torch.zeros((), device=mesh.device_type)
+        total = mesh_sum(total, mesh)
+    return torch.sqrt(total)
+
+
+def placed_like(g, p):
+    """Gradient ``g`` with parameter ``p``'s placements (DTensors)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 @torch.no_grad()
@@ -79,6 +117,7 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> dict:
     applies to every parameter, norms and embedding included. Returns
     ``{"grad_norm", "lr"}`` (0-d f32 tensors)."""
     params = named(params)
+    grads = {k: placed_like(grads[k], p) for k, p in params.items()}
     state["step"] += 1
     step = state["step"].float()
     gnorm = global_norm(grads[k] for k in params)
@@ -89,8 +128,9 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig) -> dict:
     bc1 = 1 - b1 ** step
     bc2 = 1 - b2 ** step
     for k, p in params.items():
-        g = grads[k].float() * scale
-        m, v = state["m"][k], state["v"][k]
+        p = _local(p)
+        g = _local(grads[k]).float() * scale
+        m, v = _local(state["m"][k]), _local(state["v"][k])
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * torch.square(g))
         mhat = m / bc1

@@ -22,6 +22,7 @@ from repro.train import make_train_step as jmake_train_step
 from repro.train.checkpoint import CheckpointManager as JCheckpointManager
 import repro_torch.configs as tconfigs
 from repro_torch.models import zoo as tzoo
+from repro_torch.models.base import tree_map
 from repro_torch.models.convert import jax_leaves, load_jax_params
 from repro_torch.train import AdamWConfig, adamw_init, make_train_step
 from repro_torch.train.checkpoint import CheckpointManager
@@ -194,8 +195,10 @@ def test_restore_checks(tmp_path):
     narrow = tzoo.build(_cfgs()[1].scaled(d_ff=64), device="cpu")
     with pytest.raises(ValueError, match="shape"):
         mgr.restore({"p": narrow}, device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        mgr.restore({"p": fresh}, shardings={}, device="cpu")
+    # shardings (the elastic path) that plain tensors cannot meet
+    unplaced = {"p": tree_map(lambda p: (None, ()), fresh.decl)}
+    with pytest.raises(ValueError, match="not placed as asked"):
+        mgr.restore({"p": fresh}, shardings=unplaced, device="cpu")
     mgr.restore({"p": fresh}, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(fresh.parameters(),
                                                  tm.parameters()))

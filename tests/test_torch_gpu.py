@@ -5,8 +5,9 @@ version; one training step of the smoke model), range-filter, dequant
 choice of the flash-attention body, the smoke model on CUDA against the
 CPU, windowed smoke models (D = 256 and 128), MLA, RG-LRU and whisper's
 encoder-decoder (its encoder's non-causal launches) against the plain
-route, and predicate and quantized reads on CUDA against the CPU. They skip where
-CUDA is absent. On an H100:
+route, predicate and quantized reads on CUDA against the CPU, and the
+sharded training step and MoE on a (1, 1) NCCL mesh against the unsharded
+model. They skip where CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -820,3 +821,64 @@ def test_head_dims_past_256_match_plain(cuda, dtype, body, B, H, Hkv, S, D,
                for b, c in flash_attention.launches_by_body.items()}
         assert ran == {b: int(b == body) for b in ran}
         assert (out.float() - ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A (1, 1) ("data", "model") mesh over an NCCL group of one rank."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", rank=0, world_size=1,
+                             store=tdist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        yield make_test_mesh(1, 1)
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_sharded_train_step_on_one_card(nccl_mesh):
+    """The sharded step (DTensor parameters, the flash kernel on local
+    shards under local_map) on the card: 2 simt launches a layer, and the
+    loss and every parameter within 2e-4 of the unsharded step's."""
+    from repro_torch.distributed import make_dist
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    cfg = configs.get_smoke("llama3_2_1b").scaled(compute_dtype="float32")
+    tokens = torch.randint(0, cfg.vocab, (4, 33),
+                           generator=torch.Generator().manual_seed(1))
+    out = []
+    for dist in (None, make_dist(nccl_mesh)):
+        m = build(cfg, device="cuda", dist=dist)
+        step = make_train_step(m, AdamWConfig(lr=1e-3))
+        before = dict(flash_attention.launches_by_body)
+        loss = float(step(adamw_init(m), {"tokens": tokens})["loss"])
+        torch.cuda.synchronize()
+        ran = {b: n - before[b]
+               for b, n in flash_attention.launches_by_body.items()}
+        assert ran == dict(simt=2 * cfg.n_layers, mma=0, wgmma=0)
+        out.append((loss, {k: p.full_tensor() if dist else p.detach()
+                           for k, p in m.named_parameters()}))
+    (l0, p0), (l1, p1) = out
+    assert abs(l0 - l1) < 2e-4
+    assert max((p0[k] - p1[k]).abs().max().item() for k in p0) < 2e-4
+
+
+def test_sharded_moe_on_one_card(nccl_mesh):
+    """deepseek-moe-16b's smoke model, capacity for every pair: the sharded
+    MoE path's loss within 2e-3 of the local path's, its attention through
+    the kernel (one launch a layer)."""
+    from repro_torch.distributed import make_dist
+    from repro_torch.models.moe import sharded_route
+    cfg = configs.get_smoke("deepseek_moe_16b").scaled(
+        compute_dtype="float32", capacity_factor=64.0)
+    tokens = torch.randint(0, cfg.vocab, (4, 17),
+                           generator=torch.Generator().manual_seed(1))
+    losses = []
+    for dist in (None, make_dist(nccl_mesh)):
+        m = build(cfg, device="cuda", dist=dist)
+        before = flash_attention.launches
+        with torch.no_grad():
+            losses.append(float(m.loss({"tokens": tokens})))
+        assert flash_attention.launches == before + cfg.n_layers
+    assert sharded_route(m.segments[1].b0[0].moe, m.dist)
+    assert abs(losses[0] - losses[1]) < 2e-3

@@ -237,14 +237,17 @@ def test_moe_gradients_match_reference(arch):
         assert _err(t.grad, want["shared"][name]) < 5e-5, name
 
 
-def test_moe_block_takes_the_local_path_and_refuses_a_mesh():
+def test_moe_block_takes_the_local_path_for_plain_tensors():
+    """Plain tensors take the local path, with or without a ``dist``; the
+    sharded path (DTensors on a mesh) is held against the reference in
+    ``tests/test_torch_distributed.py``."""
     cfg = tconfigs.get_smoke("mixtral_8x22b")
     params = _torch(_jax_params(jconfigs.get_smoke("mixtral_8x22b")))
-    x = torch.zeros(1, 3, cfg.d_model)
+    x = torch.randn(1, 3, cfg.d_model, generator=torch.Generator().manual_seed(0))
     y, aux = tmoe.moe_block(params, x, cfg)
     assert y.shape == x.shape and aux.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmoe.moe_block(params, x, cfg, dist=object())
+    y2, aux2 = tmoe.moe_block(params, x, cfg, dist=object())
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
 
 
 def test_moe_decl_matches_reference_layout():

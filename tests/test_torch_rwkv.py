@@ -189,11 +189,15 @@ def test_block_prefill_then_decode_match_reference(block):
         assert _close(tcache[k], jcache[k]), k
 
 
-def test_block_refuses_a_mesh(block):
+def test_block_takes_the_local_recurrence_for_plain_tensors(block):
+    """Plain tensors run the local recurrence whatever ``dist`` says; the
+    sharded block (DTensors on a mesh) is held against the reference in
+    ``tests/test_torch_distributed.py``."""
     cfg, _, tp, x = block
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trw.rwkv_block(tp, torch.tensor(x[:, :2]), None, cfg=cfg,
-                       dist=object())
+    want = trw.rwkv_block(tp, torch.tensor(x[:, :2]), None, cfg=cfg)
+    got = trw.rwkv_block(tp, torch.tensor(x[:, :2]), None, cfg=cfg,
+                         dist=object())
+    assert torch.equal(got, want)
 
 
 def test_block_routes_like_the_reference(monkeypatch):
