@@ -32,7 +32,11 @@ recompute under rematerialisation) in the flash kernel under autograd.
 The distributed path: the same step through ``build(cfg,
 dist=make_dist(mesh))`` on a (1, 1) ("data", "model") DeviceMesh over NCCL,
 DTensor parameters placed by the port's sharding rules, the flash kernel
-launched on each rank's local shards under ``local_map``.
+launched on each rank's local shards under ``local_map``; and serving the
+same way: the serving model built with ``dist=make_dist(mesh)`` through
+``ServeEngine``, its caches DTensors placed by ``cache_specs``. The launch
+analysis: ``python -m repro_torch.launch.dryrun`` on fake 16x16 and
+2x16x16 groups.
 Phases, one JSON line each:
 
   1. device         -- CUDA, compute capability 9.x, the card's name and
@@ -217,7 +221,30 @@ Phases, one JSON line each:
                        sharded MoE path's loss against the local path's
                        (2e-3); rwkv6-7b at full width and one layer, the
                        sharded loss against the unsharded (1e-5 relative)
- 25. train_times    -- flash attention at the training shape (f32, simt)
+ 25. sharded_serve  -- NCCL at world size 1 again, the (1, 1) mesh:
+                       full-width, full-depth llama3.2-1b at bf16 built
+                       with dist=make_dist(mesh) (DTensor parameters, the
+                       caches DTensors placed by cache_specs) served by
+                       ServeEngine as in phase serve: prefill_ms and decode
+                       ms a step beside phase serve's, 16 wgmma flash
+                       launches a prefill (under local_map), the 32 tokens
+                       equal to phase serve's; prefill and 4 decode steps
+                       against the unsharded model (logits within phase
+                       serve's bound, every cache tensor's gap); the real
+                       sharded prefill counted by launch.hlo_cost (kernel
+                       launched) equal in FLOPs to the same shapes on fake
+                       tensors (dryrun.serve_count, a subprocess), its
+                       roofline bound beside _serve_bounds'; then one
+                       pattern of deepseek-moe-16b (2 layers), minicpm3-4b
+                       (1), recurrentgemma-9b (3, f32), rwkv6-7b (1) and
+                       whisper-base (1 + 1, f32) sharded against unsharded
+ 26. dryrun         -- python -m repro_torch.launch.dryrun in subprocesses
+                       (fake groups of 256 and 512 ranks, fake tensors):
+                       llama3.2-1b on every shape on 16x16, decode_32k on
+                       2x16x16, deepseek-moe-16b and whisper-base
+                       prefill_32k on 16x16; each record ok, n_devices
+                       right, bound_s > 0; launch.report's tables
+ 27. train_times    -- flash attention at the training shape (f32, simt)
                        against its bound, its plain version and SDPA, warm
                        and cold; the plain backward's device time
 
@@ -831,7 +858,10 @@ def phase_serve(seed: int):
              max_abs_logit=lg_plain.float().abs().max().item(),
              kernel_vs_plain=_bound(lg_plain, lg_kernel)[0],
              plain_vs_plain_f32_probs=_bound(lg_plain, lg_plain32)[0])
-    return model, prompts, gen, launches
+    return model, prompts, gen, launches, dict(
+        prefill_ms=out["prefill_s"] * 1e3,
+        decode_ms_per_step=out["decode_s"] * 1e3 / SERVE_NEW,
+        prefill_bound_ms=prefill_bound_s * 1e3)
 
 
 def phase_logits(seed: int, gen) -> None:
@@ -1678,7 +1708,7 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
     f32-probability one, the witness that rounding the probabilities alone
     moves this random-init model's logits past the bound (PERF.md)."""
     from repro_torch.kernels.flash_attention import attention
-    from repro_torch.models import encdec
+    from repro_torch.models import transformer
     from repro_torch.models.zoo import build
     model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
     prompts = np.random.default_rng(seed + 1).integers(0, cfg.vocab, (B, P))
@@ -1694,10 +1724,11 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
                              out=out))
         return out
 
-    def dot_spy(q, k, v, *args, causal=True, **kw):
-        out = dot_attention(q, k, v, *args, causal=causal, **kw)
-        if causal:                      # the self-attention, not the cross
-            decoded.append(out)
+    def dot_spy(q, k, v, *args, **kw):
+        # the decoder's self-attention over the cache
+        # (transformer.decode_attention; the cross-attention is encdec's)
+        out = dot_attention(q, k, v, *args, **kw)
+        decoded.append(out)
         return out
 
     def prefill(toks, attn=spy):
@@ -1714,7 +1745,7 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
         rows.append([[c["err"], c["bound"]] for c in launched])
 
     rows, dec_errs, dec_bounds = [], [], []
-    dot_attention = encdec.dot_attention
+    dot_attention = transformer.dot_attention
     with torch.inference_mode():
         toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
         lg, cache = prefill(toks)
@@ -1722,11 +1753,11 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
         gen = [lg.argmax(-1)[:, None]]
         for i in range(steps):
             decoded.clear()
-            encdec.dot_attention = dot_spy
+            transformer.dot_attention = dot_spy
             try:
                 lg_dec, cache = model.decode_step(cache, gen[-1])
             finally:
-                encdec.dot_attention = dot_attention
+                transformer.dot_attention = dot_attention
             check(bool(torch.isfinite(lg_dec).all()) and len(decoded) == 1,
                   f"{cfg.name}: decode step {i}")
             seq = torch.cat([toks, *gen], dim=1)     # its last row: P + i
@@ -3225,13 +3256,13 @@ DIST = dict(steps=3, step_tol=2e-4, moe_tol=2e-3, rwkv_rel_tol=1e-5,
             moe_layers=2, rwkv_layers=1)
 
 
-def _dist_group(tmp: str):
-    """The process group (NCCL on the card, through a FileStore in ``tmp``)
-    and the port's (1, 1) ("data", "model") mesh over it."""
+def _dist_group(tmp: str, name: str = "dist_store"):
+    """The process group (NCCL on the card, through a FileStore ``name`` in
+    ``tmp``) and the port's (1, 1) ("data", "model") mesh over it."""
     import torch.distributed as tdist
     from repro_torch.launch.mesh import make_test_mesh
     torch.cuda.set_device(0)
-    store = tdist.FileStore(os.path.join(tmp, "dist_store"), 1)
+    store = tdist.FileStore(os.path.join(tmp, name), 1)
     tdist.init_process_group("nccl", store=store, rank=0, world_size=1)
     return make_test_mesh(1, 1)
 
@@ -3481,6 +3512,252 @@ def phase_distributed(seed: int, tmp: str) -> dict:
     finally:
         tdist.destroy_process_group()
     return row
+
+
+SHARDED_STEPS = 8      # decode steps of each family's sharded check
+# one pattern of each family, at phase families' route-check depths:
+# (arch, segments, dtype, batch, prompt)
+SHARDED_FAMILIES = (
+    ("deepseek_moe_16b", ((("full:swiglu",), 1), (("full:moe",), 1)),
+     torch.bfloat16, 2, 512),
+    ("minicpm3_4b", ((("mla:swiglu",), 1),), torch.bfloat16, 2, 512),
+    ("recurrentgemma_9b", None, torch.float32, 2, 2100),
+    ("rwkv6_7b", ((("rwkv:none",), 1),), torch.bfloat16, 2, 512),
+    ("whisper_base", None, torch.float32, 2, 64),
+)
+
+
+def _sharded_cfg(arch, segments, dtype):
+    import repro_torch.configs as configs
+    cfg = configs.get(arch)
+    if arch == "recurrentgemma_9b":
+        segments = ((cfg.segments[0][0], 1),)
+    if arch == "whisper_base":
+        segments = ((cfg.segments[0][0], 1),)
+        cfg = cfg.scaled(encoder=dataclasses.replace(cfg.encoder, n_layers=1))
+    if cfg.n_experts:
+        cfg = cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg.scaled(segments=segments,
+                      compute_dtype=str(dtype).replace("torch.", ""))
+
+
+def _cache_gaps(c0, c1, path="") -> dict:
+    """|sharded - unsharded| at most, each cache tensor (whole), by path."""
+    if isinstance(c0, dict):
+        return {k: v for n in c0 for k, v in
+                _cache_gaps(c0[n], c1[n], f"{path}/{n}").items()}
+    if isinstance(c0, list):
+        return {k: v for i in range(len(c0)) for k, v in
+                _cache_gaps(c0[i], c1[i], f"{path}/{i}").items()}
+    if isinstance(c0, torch.Tensor):
+        return {path: _bound(c0, _whole(c1))}
+    check(c0 == c1, f"cache {path}: {c0} vs {c1}")
+    return {}
+
+
+def _sharded_pair(cfg, seed, mesh, B, P, steps, dtype) -> dict:
+    """The unsharded model and the same parameters on ``mesh``: a prefill
+    of P tokens and ``steps`` decode steps (the unsharded model's greedy
+    tokens fed to both), each call's logits and then every cache tensor
+    held to the unsharded run within phase serve's bound (2e-2 x max|ref|
+    + 1e-3)."""
+    from repro_torch.distributed import make_dist
+    from repro_torch.models.zoo import build
+    m0 = build(cfg, device="cuda", dtype=dtype, seed=seed)
+    m1 = build(cfg, device="cuda", dtype=dtype, seed=seed,
+               dist=make_dist(mesh))
+    rng = np.random.default_rng(seed + 7)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                                       device="cuda")}
+    frames = _frames(cfg, B, rng)
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device="cuda")
+    gaps = []
+    with torch.no_grad():
+        c0 = m0.init_cache(B, P + steps, dtype=torch.float32)
+        c1 = m1.init_cache(B, P + steps, dtype=torch.float32)
+        l0, c0 = m0.prefill(batch, c0)
+        l1, c1 = m1.prefill(batch, c1)
+        gaps.append(_bound(l0, _whole(l1)))
+        for _ in range(steps):
+            tok = l0.argmax(-1)[:, None]
+            l0, c0 = m0.decode_step(c0, tok)
+            l1, c1 = m1.decode_step(c1, tok)
+            gaps.append(_bound(l0, _whole(l1)))
+        check(bool(torch.isfinite(l0).all()), f"{cfg.name}: logits")
+        cache = _cache_gaps(c0, c1)
+    del m0, m1, c0, c1
+    torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, n_layers=cfg.n_layers,
+               dtype=str(dtype).replace("torch.", ""), batch=B, prompt_len=P,
+               steps=steps, logit_gap=[g for g, _ in gaps],
+               logit_bound=[b for _, b in gaps],
+               cache_gap={k: g for k, (g, _) in cache.items()})
+    emit("sharded_serve", **row)
+    check(all(g < b for g, b in gaps), f"{cfg.name} sharded logits {gaps}")
+    check(all(g < b for g, b in cache.values()),
+          f"{cfg.name} sharded caches {cache}")
+    return row
+
+
+def _fake_serve_count(cfg, B: int, P: int, max_seq: int, dtype) -> dict:
+    """``dryrun.serve_count`` in a subprocess (a fake group cannot share
+    this process with NCCL's): the same prefill's count on fake tensors
+    over a fake group of one."""
+    code = ("import json, torch\n"
+            "from repro_torch.launch import dryrun\n"
+            "import repro_torch.configs as c\n"
+            f"cfg = c.get({cfg.name!r}).scaled(compute_dtype="
+            f"{cfg.compute_dtype!r})\n"
+            f"r = dryrun.serve_count(cfg, (1, 1), {B}, {P}, {max_seq}, "
+            f"torch.{str(dtype).replace('torch.', '')})\n"
+            "print(json.dumps(r))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(r.returncode == 0, f"serve_count: {r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
+    """ServeEngine with a sharded model on the (1, 1) NCCL mesh: llama3.2-1b
+    at full width and depth, bf16, phase serve's prompts and work; its
+    launches, tokens, times and cost count; then each family's pattern
+    sharded against unsharded. Returns the prefill's flash launches."""
+    import torch.distributed as tdist
+    import repro_torch.configs as configs
+    from repro_torch.distributed import make_dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import hlo_cost, roofline
+    from repro_torch.models.zoo import build
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get("llama3.2-1b").scaled(compute_dtype="bfloat16")
+    mesh = _dist_group(tmp, "sharded_serve_store")
+    try:
+        model = build(cfg, device="cuda", dtype=torch.bfloat16, seed=seed,
+                      dist=make_dist(mesh))
+        eng = ServeEngine(model, max_seq=SERVE_MAX_SEQ, device="cuda")
+        eng.generate(prompts, max_new_tokens=SERVE_NEW)          # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        out = eng.generate(prompts, max_new_tokens=SERVE_NEW)   # the main path
+        launched = counts()
+        by_body = dict(flash_attention.launches_by_body)
+        launches = launched["flash_attention"]
+        # the real sharded prefill counted (the kernel launched), and the
+        # same shapes on fake tensors
+        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+        cache = model.init_cache(SERVE_B, SERVE_MAX_SEQ, dtype=torch.float32)
+        before = flash_attention.launches
+        with torch.no_grad():
+            real = hlo_cost.analyze(model.prefill, {"tokens": toks}, cache)
+        counted_launches = flash_attention.launches - before
+        del cache, real["out"]
+        t0 = time.perf_counter()
+        fake = _fake_serve_count(cfg, SERVE_B, SERVE_P, SERVE_MAX_SEQ,
+                                 torch.bfloat16)
+        fake_count_s = time.perf_counter() - t0
+        terms = roofline.roofline_terms(real["flops"], real["bytes"],
+                                        real["collective_bytes"])
+        prefill_ms = out["prefill_s"] * 1e3
+        row = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=SERVE_B,
+                   prompt_len=SERVE_P, new_tokens=SERVE_NEW,
+                   mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   backend=tdist.get_backend(), prefill_ms=prefill_ms,
+                   decode_ms_per_step=out["decode_s"] * 1e3 / SERVE_NEW,
+                   serve_prefill_ms=serve["prefill_ms"],
+                   serve_decode_ms_per_step=serve["decode_ms_per_step"],
+                   flash_launches_per_prefill=launches,
+                   flash_launches_by_body=by_body,
+                   tokens_equal_serve=bool((out["tokens"] == gen).all()),
+                   counted_flops=real["flops"], fake_flops=fake["flops"],
+                   counted_bytes=real["bytes"],
+                   counted_collective_bytes=real["collective_bytes"],
+                   counted_flash_launches=counted_launches,
+                   roofline_bound_ms=terms["bound_s"] * 1e3,
+                   roofline_dominant=terms["dominant"],
+                   serve_bounds_prefill_ms=serve["prefill_bound_ms"],
+                   fake_count_s=fake_count_s)
+        emit("sharded_serve", **row)
+        check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
+                               dequant=0, dequant_packed=0, bitunpack=0),
+              f"sharded serving launched {launched}")
+        check(by_body == dict(simt=0, mma=0, wgmma=cfg.n_layers),
+              f"sharded serving launched the bodies {by_body}")
+        check(row["tokens_equal_serve"],
+              "sharded tokens differ from phase serve's")
+        check(counted_launches == cfg.n_layers,
+              f"the counted prefill launched {counted_launches}")
+        check(real["flops"] == fake["flops"],
+              f"counted FLOPs {real['flops']} vs fake {fake['flops']}")
+        check(terms["bound_s"] > 0, "roofline bound")
+        del model, eng
+        torch.cuda.empty_cache()
+        _sharded_pair(cfg, seed, mesh, SERVE_B, SERVE_P, 4, torch.bfloat16)
+        for arch, segments, dtype, B, P in SHARDED_FAMILIES:
+            _sharded_pair(_sharded_cfg(arch, segments, dtype), seed, mesh,
+                          B, P, SHARDED_STEPS, dtype)
+    finally:
+        tdist.destroy_process_group()
+    return launches
+
+
+DRYRUN_CELLS = (("llama3.2-1b", None, False), ("llama3.2-1b", "decode_32k", True),
+                ("deepseek-moe-16b", "prefill_32k", False),
+                ("whisper-base", "prefill_32k", False))
+
+
+def phase_dryrun(tmp: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS (an
+    arch on every shape where the shape is None), artifacts under
+    ``tmp``; every record ok (long_500k of a full-attention family
+    skipped), its n_devices the mesh's, its bound positive; then
+    ``launch.report``'s table of each mesh."""
+    out = os.path.join(tmp, "dryrun")
+    t0 = time.perf_counter()
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--out", out]
+        if shape:
+            cmd += ["--shape", shape]
+        if multi_pod:
+            cmd += ["--multi-pod"]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                           cwd=ROOT, env=dict(os.environ,
+                                              PYTHONPATH=str(ROOT / "src")))
+        check(r.returncode == 0, f"dryrun {arch} {shape}: "
+              f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    recs = []
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name)) as f:
+            rec = json.load(f)
+        recs.append(rec)
+        keep = {k: rec.get(k) for k in ("arch", "shape", "mesh", "status",
+                                        "n_devices", "trace_s", "memory",
+                                        "flops_per_device",
+                                        "bytes_per_device", "roofline")}
+        keep["collective_bytes"] = rec.get("collectives", {}).get(
+            "total_bytes")
+        emit("dryrun", **keep)
+        if rec["status"] == "skipped":
+            check(rec["shape"] == "long_500k", f"skipped {rec}")
+            continue
+        check(rec["status"] == "ok", f"dryrun {name}: {rec.get('error')}")
+        check(rec["n_devices"] == (512 if rec["mesh"] == "2x16x16" else 256),
+              f"{name}: n_devices {rec['n_devices']}")
+        check(rec["roofline"]["bound_s"] > 0, f"{name}: bound")
+    check(len([r for r in recs if r["status"] == "ok"]) == 6,
+          f"dryrun records {[(r['arch'], r['shape'], r['mesh']) for r in recs]}")
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys; from repro_torch.launch import report; "
+                        f"report.ARTIFACT_DIR = {out!r}; "
+                        "print(report.table('16x16')); "
+                        "print(report.table('2x16x16'))"],
+                       capture_output=True, text=True, timeout=120, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(r.returncode == 0, f"report: {r.stderr[-2000:]}")
+    emit("dryrun", seconds=time.perf_counter() - t0, report=r.stdout)
+    return {"seconds": time.perf_counter() - t0}
 
 
 def _train_launcher(seed: int, tmp: str) -> dict:
@@ -3838,7 +4115,7 @@ def main(argv=None) -> int:
     filter_err = phase_filter_kernels(args.seed)
     dequant_err = phase_dequant_kernels(args.seed)
     bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
-    model, prompts, gen, launches = phase_serve(args.seed)
+    model, prompts, gen, launches, serve_times = phase_serve(args.seed)
     phase_profile(model, prompts)
     del model
     torch.cuda.empty_cache()
@@ -3872,6 +4149,9 @@ def main(argv=None) -> int:
         timed("export", phase_export, tmp)
         train = timed("train", phase_train, args.seed, tmp)
         dist = timed("distributed", phase_distributed, args.seed, tmp)
+        sharded_launches = timed("sharded_serve", phase_sharded_serve,
+                                 args.seed, tmp, prompts, gen, serve_times)
+        timed("dryrun", phase_dryrun, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {"scan_ads": {"range_mask": scan_launches,
@@ -3888,6 +4168,7 @@ def main(argv=None) -> int:
              launches=launches, max_abs_err=serve_err, **row,
              launches_by_phase={"serve": launches, "train": train["launches"],
                                 "distributed": dist["flash_launches"],
+                                "sharded_serve": sharded_launches,
                                  **{f"families_{arch}": n for arch, n
                                     in family_launches.items()}},
              d256=dict(body="wgmma", shape=[WIDE_CASE[k] for k in

@@ -40,3 +40,17 @@ def grad_placements(inp: tuple, out: tuple) -> tuple:
     sum; elsewhere the gradient is placed as the input."""
     return tuple(Partial() if isinstance(i, Replicate) and isinstance(o, Shard)
                  else i for i, o in zip(inp, out))
+
+
+def local_range(n: int, mesh, plc, dim: int) -> tuple[int, int]:
+    """(first index, count) of this rank's slice of a tensor dim of size n
+    under placements ``plc``: DTensor's ``Shard`` splits into ceil-sized
+    chunks, mesh dims in order."""
+    lo, size = 0, n
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard) and p.dim == dim:
+            c = -(-size // mesh.size(i))
+            start = min(c * coord[i], size)
+            lo, size = lo + start, min(start + c, size) - start
+    return lo, size

@@ -7,8 +7,11 @@ kernel (and adds one to ``flash_attention.launches``, to the launched
 body's entry of ``flash_attention.launches_by_body``, to the window's
 entry of ``flash_attention.launches_by_window``, 0 for none, and to the
 causal flag's of ``flash_attention.launches_by_causal``); a CPU
-tensor takes the plain version, ``attention_ref``. Nothing falls back from
-the kernel.
+tensor takes the plain version, ``attention_ref``; a fake or meta tensor
+(a dry run, ``launch.dryrun``) takes a shape-only route that launches
+nothing. The three routes are one custom operator,
+``torch.ops.repro_torch.flash_fwd``, with a FLOP formula, so a dispatch
+mode counts it alike on each. Nothing falls back from the kernel.
 
 An input that requires grad takes ``attention`` through ``_Attention``, a
 ``torch.autograd.Function``: its forward is the same launch (or the plain
@@ -17,7 +20,8 @@ device, since the reference has no backward kernel either. The kernel's
 own output carries no graph, so its route raises for such an input that
 comes any other way.
 
-DTensor inputs (the sharded training step) go through ``local_map``: each
+DTensor inputs (the sharded training step and prefill) go through
+``local_map`` (``local_heads``): each
 rank launches the kernel on its local batch rows and query heads, and the
 backward flows through ``local_map`` to the same ``_Attention``. Where the
 query heads are sharded but the kv heads are replicated (GQA with fewer kv
@@ -30,11 +34,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
+from torch.utils.flop_counter import register_flop_formula
 
 from ... import resolve_device
-from ...distributed.placement import grad_placements
+
+from ...distributed.placement import grad_placements, local_range
 from .kernel import BODIES, flash_attention_fwd
 from .ref import attention_bwd_ref, attention_ref
 
@@ -58,7 +65,15 @@ def _launch(q, k, v, *, causal, window, kv_len, body):
     return out
 
 
-def _forward(q, k, v, causal, window, kv_len, body):
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int, kv_len: int,
+               body: str) -> torch.Tensor:
+    """The forward as one operator that a dispatch mode sees whole (so a
+    cost count, ``launch.hlo_cost``, counts it by ``_flash_flops`` on
+    whichever route computes it): the kernel for a CUDA tensor, the plain
+    version for a CPU tensor, and ``_shape_only`` for a fake or meta
+    tensor."""
     if q.is_cuda:
         return _launch(q, k, v, causal=causal, window=window, kv_len=kv_len,
                        body=body)
@@ -71,6 +86,32 @@ def _forward(q, k, v, causal, window, kv_len, body):
                         v.transpose(1, 2), causal=causal, window=window,
                         kv_len=kv_len)
     return out.transpose(1, 2).contiguous()
+
+
+@_flash_fwd.register_fake
+def _shape_only(q, k, v, causal, window, kv_len, body):
+    """The output's shape for a fake or meta q (a fake CUDA tensor has
+    ``is_cuda`` True, so it must never reach the launch); nothing is
+    launched, and a tensor with storage is refused."""
+    if not (isinstance(q, FakeTensor) or q.is_meta):
+        raise ValueError("the shape-only route of flash attention takes "
+                         "fake or meta tensors, not a tensor with storage")
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                 **kwargs) -> int:
+    """2·B·H·Sq·Skv·(Dqk + Dv), the masked pairs included: what
+    ``attention_ref``'s two products count, so the plain version and the
+    kernel count alike."""
+    B, S, H, D = q_shape
+    return 2 * B * H * S * k_shape[1] * (D + v_shape[-1])
+
+
+def _forward(q, k, v, causal, window, kv_len, body):
+    return torch.ops.repro_torch.flash_fwd(q, k, v, causal, window, kv_len,
+                                           body)
 
 
 class _Attention(torch.autograd.Function):
@@ -91,24 +132,13 @@ class _Attention(torch.autograd.Function):
         return (*(g.transpose(1, 2) for g in grads), None, None, None, None)
 
 
-def _local_range(n: int, mesh, plc, dim: int) -> tuple[int, int]:
-    """(first index, count) of this rank's slice of a tensor dim of size n
-    under placements ``plc``: DTensor's ``Shard`` splits into ceil-sized
-    chunks, mesh dims in order."""
-    lo, size = 0, n
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(plc):
-        if isinstance(p, Shard) and p.dim == dim:
-            c = -(-size // mesh.size(i))
-            start = min(c * coord[i], size)
-            lo, size = lo + start, min(start + c, size) - start
-    return lo, size
-
-
-def _sharded_attention(q, k, v, causal, window, kv_len, body):
-    """``attention`` on DTensors q [B, S, H, D], k, v [B, S, Hkv, D]: the
-    kernel on each rank's batch rows (q's ``Shard(0)`` mesh dims) and query
-    heads (q's ``Shard(2)`` mesh dims), the sequence and head dim whole."""
+def local_heads(fn, q, k, v):
+    """``fn(ql, kl, vl)`` under ``local_map`` on DTensors q [B, Sq, H, D],
+    k, v [B, Skv, Hkv, D]: on each rank's batch rows (q's ``Shard(0)``
+    mesh dims) and query heads (q's ``Shard(2)`` mesh dims), the sequences
+    and head dims whole, each rank's kl, vl the kv heads of its query
+    heads (query head h reads kv head h // (H // Hkv), global numbering).
+    The output is placed as q."""
     mesh = q.device_mesh
     qp, kvp = [], []
     for pq, pk in zip(q.placements, k.placements):
@@ -124,8 +154,8 @@ def _sharded_attention(q, k, v, causal, window, kv_len, body):
     qp, kvp = tuple(qp), tuple(kvp)
     kv_grad = grad_placements(kvp, qp)
     H, Hkv = q.shape[2], k.shape[2]
-    q0, hq = _local_range(H, mesh, qp, 2)
-    k0, _ = _local_range(Hkv, mesh, kvp, 2)
+    q0, hq = local_range(H, mesh, qp, 2)
+    k0, _ = local_range(Hkv, mesh, kvp, 2)
     # the kv heads (local numbering) that local query heads 0..hq-1 read
     idx = [(q0 + h) // (H // Hkv) - k0 for h in range(hq)]
 
@@ -136,13 +166,20 @@ def _sharded_attention(q, k, v, causal, window, kv_len, body):
         else:
             sel = torch.tensor(idx, device=kl.device)
             kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
-        return attention(ql, kl, vl, causal=causal, window=window,
-                         kv_len=kv_len, body=body)
+        return fn(ql, kl, vl)
 
     return local_map(local, out_placements=[*qp],
                      in_placements=(qp, kvp, kvp),
                      in_grad_placements=(qp, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _sharded_attention(q, k, v, causal, window, kv_len, body):
+    """``attention`` on DTensors q [B, S, H, D], k, v [B, S, Hkv, D]: the
+    kernel on each rank's batch rows and query heads (``local_heads``)."""
+    return local_heads(lambda ql, kl, vl: attention(
+        ql, kl, vl, causal=causal, window=window, kv_len=kv_len, body=body),
+        q, k, v)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,

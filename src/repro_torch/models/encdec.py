@@ -23,15 +23,19 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention
-from .base import P
+from ..kernels.flash_attention.ops import local_heads
+from .base import P, constrain
+from .cache import LayerCache, put
 from .config import ModelConfig
 from .layers import (_proj, attention_decl, attn_out, attn_qkv,
                      cross_attention_decl, dot_attention, gelu_mlp,
                      gelu_mlp_decl, layernorm, layernorm_decl, sinusoidal_pos)
-from .transformer import Ctx
+from .transformer import Ctx, decode_attention, prefill_put
 
 
 def enc_block_decl(cfg: ModelConfig) -> dict:
@@ -71,15 +75,20 @@ def encdec_decl(cfg: ModelConfig) -> dict:
     }
 
 
-def _layers(body, x, per_layer, train: bool):
+def _layers(body, x, per_layer, ctx: Ctx):
     """x through ``body(x, *args)`` for each ``args`` of ``per_layer``,
-    each layer under a non-reentrant checkpoint in training."""
+    each layer under a non-reentrant checkpoint in training. Sharded, the
+    stream is held at ``("batch", None, None)`` after each layer, as the
+    decoder-only models hold their residual."""
+    rules = ctx.dist.rules if ctx.dist is not None else None
     for args in per_layer:
-        if train:
+        if ctx.mode == "train":
             x = checkpoint(body, x, *args, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             x = body(x, *args)
+        if rules is not None:
+            x = constrain(x, rules, ("batch", None, None))
     return x
 
 
@@ -102,10 +111,16 @@ def _pos_emb(S: int, d: int, device: torch.device,
 def encode(params, frames, cfg: ModelConfig, ctx: Ctx):
     """frames: [B, S_enc, d], the stubbed front end's output -> the
     encoder's normed output [B, S_enc, d]."""
-    x = frames + _pos_emb(frames.shape[1], cfg.d_model, frames.device,
-                          frames.dtype)[None]
-    x = _layers(_enc_layer, x, [(p,) for p in params["enc_blocks"]],
-                ctx.mode == "train")
+    if isinstance(frames, FakeTensor):
+        # a dry run's fake frames: a cached table belongs to another run's
+        # fake mode, so the table is made anew (shapes only)
+        pos = _pos_emb.__wrapped__(frames.shape[1], cfg.d_model,
+                                   frames.device, frames.dtype)
+    else:
+        pos = _pos_emb(frames.shape[1], cfg.d_model, frames.device,
+                       frames.dtype)
+    x = frames + pos[None]
+    x = _layers(_enc_layer, x, [(p,) for p in params["enc_blocks"]], ctx)
     return layernorm(params["enc_norm"], x)
 
 
@@ -127,29 +142,34 @@ def _dec_layer(h, p, ek, ev, ctx: Ctx, cache):
                        rope_theta=cfg.rope_theta)
     if ctx.mode == "decode":
         pos = ctx.cache_pos
-        ck, cv = cache["k"], cache["v"]
-        ck[:, pos] = k[:, 0].to(ck.dtype)
-        cv[:, pos] = v[:, 0].to(cv.dtype)
-        S = ck.shape[1]
-        kv_pos = torch.arange(S, device=h.device)
-        valid = (kv_pos <= pos)[None, :].expand(h.shape[0], S)
-        o = dot_attention(q, ck.to(h.dtype), cv.to(h.dtype), ctx.positions,
-                          kv_pos, causal=True, kv_valid=valid)
+        put(cache, "k", k[:, 0], (slice(None), pos))
+        put(cache, "v", v[:, 0], (slice(None), pos))
+        kv_pos = torch.arange(cache["k"].shape[1], device=h.device)
+        o = decode_attention(q, cache["k"], cache["v"], ctx.positions,
+                             kv_pos, kv_pos <= pos)
     else:
         o = attention(q, k, v, causal=True)
         if cache is not None:
-            T = h.shape[1]
-            for c, new in ((cache["k"], k), (cache["v"], v)):
-                c[:, :T] = new.to(c.dtype)
-                c[:, T:] = 0
+            prefill_put(cache, k, v)
     h = h + attn_out(p["self_attn"], o)
     xn = layernorm(p["ln_cross"], h)
     qc = _proj(xn, p["cross_attn"]["wq"])
-    enc_pos = torch.arange(ek.shape[1], device=h.device)
-    oc = dot_attention(qc, ek.to(h.dtype), ev.to(h.dtype), ctx.positions,
-                       enc_pos, causal=False)
-    h = h + attn_out(p["cross_attn"], oc)
+    h = h + attn_out(p["cross_attn"],
+                     _cross_attention(qc, ek, ev, ctx.positions))
     return h + gelu_mlp(p["mlp"], layernorm(p["ln_mlp"], h))
+
+
+def _cross_attention(q, ek, ev, q_pos):
+    """Plain attention of q [B, T, H, D] over the encoder's K, V [B, S_enc,
+    H, D] (cast to q's dtype), not causal. DTensors run on each rank's
+    batch rows and heads, the frames whole (``local_heads``)."""
+    def plain(ql, kl, vl):
+        pos = torch.arange(kl.shape[1], device=kl.device)
+        return dot_attention(ql, kl.to(ql.dtype), vl.to(ql.dtype), q_pos,
+                             pos, causal=False)
+    if isinstance(q, DTensor):
+        return local_heads(plain, q, ek, ev)
+    return plain(q, ek, ev)
 
 
 def decode_blocks(params, x, cfg: ModelConfig, ctx: Ctx, enc_k, enc_v,
@@ -161,9 +181,9 @@ def decode_blocks(params, x, cfg: ModelConfig, ctx: Ctx, enc_k, enc_v,
     if ctx.mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
     layers = [(p, enc_k[i], enc_v[i], ctx,
-               None if cache is None else {n: t[i] for n, t in cache.items()})
+               None if cache is None else LayerCache(cache, i))
               for i, p in enumerate(params["dec_blocks"])]
-    x = _layers(_dec_layer, x, layers, ctx.mode == "train")
+    x = _layers(_dec_layer, x, layers, ctx)
     return layernorm(params["dec_norm"], x)
 
 

@@ -137,12 +137,19 @@ class _Flat(torch.autograd.Function):
     prod(shape[split:])]``. For a DTensor the gradient is placed as the
     weight's flat image (its ``Shard(0)`` and ``Shard(split)`` mesh dims
     kept, the others replicated) before it is viewed back: DTensor's
-    backward may otherwise shard the flat dim across the split."""
+    backward may otherwise shard the flat dim across the split. A dim of
+    size 1 sharded (over a mesh axis of size 1: the same data) is first
+    replicated, as DTensor cannot flatten it sharded (recurrentgemma-9b's
+    one kv head on a (1, 1) mesh)."""
 
     @staticmethod
     def forward(ctx, w, split):
         ctx.shape, ctx.split = w.shape, split
         if isinstance(w, DTensor):
+            plc = tuple(Replicate() if isinstance(p, Shard)
+                        and w.shape[p.dim] == 1 else p for p in w.placements)
+            if plc != tuple(w.placements):
+                w = w.redistribute(w.device_mesh, plc)
             ctx.flat = tuple(Shard(0) if p == Shard(0) else
                              Shard(1) if p == Shard(split) else Replicate()
                              for p in w.placements)
@@ -163,6 +170,78 @@ def flat(w, split: int = 1):
     return w.reshape(math.prod(w.shape[:split]), -1)
 
 
+class _Rows(torch.autograd.Function):
+    """x [*lead, d] as flat rows [N, d] (x sharded on its leading and last
+    dims at most). A DTensor's gradient is placed as x before it is split
+    back: DTensor's backward may otherwise shard a dim that the views
+    upstream split unevenly (whisper-base's 8 heads over model = 16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.lead = tuple(x.shape[:-1])
+        last = Shard(x.ndim - 1)
+        ctx.plc = tuple(Shard(1) if p == last else p for p in x.placements)
+        return x.reshape(-1, x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.plc:
+            g = g.redistribute(g.device_mesh, ctx.plc)
+        return g.reshape(*ctx.lead, g.shape[-1])
+
+
+class _Unflat(torch.autograd.Function):
+    """Flat rows y [N, n] split back to [*lead, n]. For a DTensor the
+    gradient is placed as the split y (its row and column shardings on the
+    first and last dims, replicated elsewhere) before it is flattened:
+    DTensor's backward may hand it sharded over rows that the mesh does not
+    divide (3 over data = 2), which it cannot flatten."""
+
+    @staticmethod
+    def forward(ctx, y, lead):
+        ctx.plc = tuple(Shard(len(lead)) if p == Shard(1) else p
+                        for p in y.placements)
+        return y.reshape(*lead, y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.plc:
+            g = g.redistribute(g.device_mesh, ctx.plc)
+        return g.reshape(-1, g.shape[-1]), None
+
+
+def _mm(x, w):
+    """x [..., d] @ w [d, n]. A DTensor x of 3 or more dims multiplies as
+    flat rows [N, d]: first placed with its leading (batch) dim's sharding
+    where the mesh divides it and its last dim's, replicated elsewhere (a
+    sharded sequence gathered, partial sums reduced), and the product
+    placed with x's row sharding and its own column sharding, replicated
+    elsewhere, before it is split back (``_Rows``, ``_Unflat``: their
+    gradients placed alike). DTensor may otherwise
+    shard the flat rows over an axis that does not divide them and then
+    fail to split them (whisper-base's 2 x 16 frames over model = 3). A
+    plain x times a DTensor w is x replicated."""
+    if isinstance(w, DTensor) and not isinstance(x, DTensor):
+        x = DTensor.from_local(x, w.device_mesh,
+                               (Replicate(),) * w.device_mesh.ndim,
+                               run_check=False)
+    if not isinstance(x, DTensor) or x.ndim == 2:
+        return x @ w
+    mesh, last = x.device_mesh, Shard(x.ndim - 1)
+    xp = tuple(p if p == last or (p == Shard(0)
+                                  and x.shape[0] % mesh.size(i) == 0)
+               else Replicate() for i, p in enumerate(x.placements))
+    if tuple(x.placements) != xp:
+        x = x.redistribute(mesh, xp)
+    y = _Rows.apply(x) @ w
+    want = tuple(Shard(0) if px == Shard(0) else
+                 py if py == Shard(1) else Replicate()
+                 for px, py in zip(x.placements, y.placements))
+    if tuple(y.placements) != want:
+        y = y.redistribute(mesh, want)
+    return _Unflat.apply(y, tuple(x.shape[:-1]))
+
+
 def _proj(x, w):
     """x [..., d] times w [d, *out] -> [..., *out], in x's dtype. For
     DTensors the flat product is first placed as the split needs it:
@@ -170,7 +249,7 @@ def _proj(x, w):
     dim, which the split keeps outermost, and replicated elsewhere (DTensor
     may otherwise shard the flat dim across the split, e.g. replicated GQA
     kv heads over the model axis)."""
-    y = x @ flat(w.to(x.dtype))
+    y = _mm(x, flat(w.to(x.dtype)))
     if isinstance(y, DTensor) and len(w.shape) > 2:
         want = tuple(
             Shard(0) if px == Shard(0) else
@@ -206,7 +285,7 @@ def attn_qkv(p, x, positions, *, rope_theta=10000.0, qk_norm=False,
 
 def attn_out(p, o):
     """o [B, S, H, D] -> [B, S, d] through wo [H, D, d]."""
-    return o.flatten(-2) @ flat(p["wo"].to(o.dtype), 2)
+    return _mm(o.flatten(-2), flat(p["wo"].to(o.dtype), 2))
 
 
 def cross_attention_decl(d: int, n_heads: int, head_dim: int) -> dict:
@@ -225,9 +304,9 @@ def swiglu_decl(d: int, ff: int) -> dict:
 
 
 def swiglu(p, x):
-    g = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+    g = _mm(x, p["w_gate"].to(x.dtype))
+    u = _mm(x, p["w_up"].to(x.dtype))
+    return _mm(F.silu(g) * u, p["w_down"].to(x.dtype))
 
 
 def gelu_mlp_decl(d: int, ff: int) -> dict:
@@ -240,6 +319,6 @@ def gelu_mlp_decl(d: int, ff: int) -> dict:
 def gelu_mlp(p, x):
     """``jax.nn.gelu``'s default is the tanh approximation, so this is too
     (PyTorch's default is erf)."""
-    h = x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype)
+    h = _mm(x, p["w_up"].to(x.dtype)) + p["b_up"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+    return _mm(h, p["w_down"].to(x.dtype)) + p["b_down"].to(x.dtype)

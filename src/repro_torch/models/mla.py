@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import attention
 from .base import P
+from .cache import put
 from .layers import NEG_INF, _proj, attn_out, rmsnorm, rmsnorm_decl, rope
 
 
@@ -72,9 +73,9 @@ def mla_attention(p, x, positions, cfg, cache=None, cache_pos: int = 0):
 
     if cache is not None and T == 1:
         # -- absorbed decode over the compressed cache --
+        put(cache, "ckv", ckv_new[:, 0], (slice(None), cache_pos))
+        put(cache, "kr", kr_new[:, 0], (slice(None), cache_pos))
         ckv, kr = cache["ckv"], cache["kr"]
-        ckv[:, cache_pos] = ckv_new[:, 0].to(ckv.dtype)
-        kr[:, cache_pos] = kr_new[:, 0].to(kr.dtype)
         S = ckv.shape[1]
         w_k = p["wkv_b"][..., :dn].to(x.dtype)              # [r, H, dn]
         w_v = p["wkv_b"][..., dn:].to(x.dtype)              # [r, H, dv]
@@ -100,9 +101,9 @@ def mla_attention(p, x, positions, cfg, cache=None, cache_pos: int = 0):
         v = F.pad(kv[..., dn:], (0, dn + dr - dv))
         o = attention(q, k, v, causal=True)[..., :dv]
         if cache is not None:
-            for c, new in ((cache["ckv"], ckv_new), (cache["kr"], kr_new)):
-                c[:, :T] = new.to(c.dtype)
-                c[:, T:] = 0
+            for name, new in (("ckv", ckv_new), ("kr", kr_new)):
+                put(cache, name, new, (slice(None), slice(0, T)))
+                put(cache, name, 0, (slice(None), slice(T, None)))
     return attn_out(p, o)
 
 

@@ -16,8 +16,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed.placement import grad_placements
 from .base import P
+from .cache import put
 from .layers import _proj, rmsnorm, rmsnorm_decl
 
 RG_C = 8.0  # Griffin's constant c
@@ -45,7 +49,18 @@ def rglru_decl(cfg) -> dict:
 
 def _block_diag(x, w, H: int):
     """x [B, T, lru] -> the block-diagonal linear map by heads,
-    [B, T, H, bd] @ [H, bd, bd]."""
+    [B, T, H, bd] @ [H, bd, bd]. A DTensor x runs under ``local_map`` on
+    its batch rows, w whole: DTensor's einsum may shard the heads over an
+    axis that does not divide them and then fail to split them back (4
+    heads over model = 3)."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        xp = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+        rep = (Replicate(),) * mesh.ndim
+        return local_map(lambda xl, wl: _block_diag(xl, wl, H),
+                         out_placements=[*xp], in_placements=(xp, rep),
+                         in_grad_placements=(xp, grad_placements(rep, xp)),
+                         device_mesh=mesh, redistribute_inputs=True)(x, w)
     B, T, lru = x.shape
     xh = x.reshape(B, T, H, lru // H)
     return torch.einsum("bthi,hij->bthj", xh, w.to(x.dtype)).reshape(B, T, lru)
@@ -107,8 +122,8 @@ def rglru_block(p, x, cache=None, *, cfg):
             hs = hs + a_s * cache["h"][:, None, :]
     out = _proj(gate * hs.to(x.dtype), p["w_out"])
     if cache is not None:
-        cache["h"].copy_(hs[:, -1])
-        cache["conv"].copy_(new_conv)
+        put(cache, "h", hs[:, -1])
+        put(cache, "conv", new_conv)
     return x + out
 
 

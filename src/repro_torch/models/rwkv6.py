@@ -24,6 +24,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..distributed.placement import grad_placements, placements
 from .base import P, constrain
+from .cache import put
 from .layers import _proj, flat, layernorm, layernorm_decl
 
 LORA_R = 32
@@ -126,8 +127,9 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 64):
 
 def _sharded_wkv(wkv, r, k, v, w, u, state, rules):
     """``wkv`` under ``local_map`` on DTensors r, k, v, w [B, T, H, D] and
-    u [H, D]; ``state`` [B, H, D, D] a plain tensor (a cache's, whole) or
-    None (zeros). Returns (y, the final state), DTensors."""
+    u [H, D]; ``state`` [B, H, D, D] a cache's (a DTensor of a sharded
+    cache, or a plain tensor, whole) or None (zeros). Returns (y, the
+    final state), DTensors."""
     spec = ("batch", None, "heads", None)
     r, k, v, w = (constrain(t, rules, spec) for t in (r, k, v, w))
     mesh = r.device_mesh
@@ -139,7 +141,8 @@ def _sharded_wkv(wkv, r, k, v, w, u, state, rules):
     args = [r, k, v, w, u]
     in_plc = [plc] * 4 + [uplc]
     if state is not None:
-        args.append(distribute_tensor(state, mesh, splc))
+        args.append(state.redistribute(mesh, splc) if isinstance(state, DTensor)
+                    else distribute_tensor(state, mesh, splc))
         in_plc.append(splc)
 
     def local(rl, kl, vl, wl, ul, sl=None):
@@ -195,8 +198,6 @@ def rwkv_block(p, x, cache=None, *, cfg, use_chunked: bool = False,
         y, state = _sharded_wkv(wkv, r, k, v, w, u,
                                 cache["S"] if cache is not None else None,
                                 dist.rules)
-        if cache is not None:
-            state = state.full_tensor()
     else:
         state = cache["S"] if cache is not None else torch.zeros(
             (B, H, dh, dh), dtype=torch.float32, device=x.device)
@@ -217,10 +218,9 @@ def rwkv_block(p, x, cache=None, *, cfg, use_chunked: bool = False,
     x = x + rr * _proj(kk, cm["wv"])
 
     if cache is not None:
-        cache["S"].copy_(state)
-        for name, t in (("tm_prev", xn[:, -1]), ("cm_prev", xn2[:, -1])):
-            cache[name].copy_(t.full_tensor() if isinstance(t, DTensor)
-                              else t)
+        for name, t in (("S", state), ("tm_prev", xn[:, -1]),
+                        ("cm_prev", xn2[:, -1])):
+            put(cache, name, t)
     return x
 
 

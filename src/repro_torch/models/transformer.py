@@ -5,7 +5,9 @@ block's parameters over the repeat count and runs ``jax.lax.scan``; here the
 layers are a ``ModuleList`` walked by a Python loop. Caches keep the
 reference's stacked layout, a leading ``[layers, ...]`` axis on each of a
 block's cache tensors, and are updated in place (a decode step writes one
-slot instead of copying the cache).
+slot instead of copying the cache) through ``models.cache``: a layer's
+``LayerCache`` reads its slice, ``put`` writes into the stack (into each
+rank's local shard for a sharded cache).
 
 Ported: every decoder block kind. ``full``/``global`` attention and the
 windowed ``window``/``local`` attention, with ``swiglu``, ``gelu`` or
@@ -26,9 +28,10 @@ residual stream is held at ``("batch", "seq", None)`` before the layers
 and after each repeat of a segment's pattern, as the reference constrains
 it; the embedding gather runs on each rank's batch rows against the whole
 table (``_sharded_gather``); attention launches the kernel on local
-shards (``kernels.flash_attention.attention``); the MoE and RWKV blocks
-take ``dist`` (``models/moe.py``, ``models/rwkv6.py``). Every other op is
-DTensor's own.
+shards (``kernels.flash_attention.attention``), decode attention plain
+on the same local shards (``local_heads``); the MoE and RWKV blocks take
+``dist`` (``models/moe.py``, ``models/rwkv6.py``). Every other op is
+DTensor's own, 3-D products on flat rows (``layers._mm``).
 """
 
 from __future__ import annotations
@@ -43,14 +46,16 @@ from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention
+from ..kernels.flash_attention.ops import local_heads
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from ..distributed.placement import grad_placements, placements
 from .base import P, constrain
+from .cache import LayerCache, put
 from .config import ModelConfig
-from .layers import (attention_decl, attn_out, attn_qkv, dot_attention,
+from .layers import (_mm, attention_decl, attn_out, attn_qkv, dot_attention,
                      gelu_mlp, gelu_mlp_decl, layernorm, layernorm_decl,
                      rmsnorm, rmsnorm_decl, swiglu, swiglu_decl)
 
@@ -230,32 +235,56 @@ def attn_sublayer(p, x, kind: str, ctx: Ctx, cache):
                        head_dim=cfg.head_dim)
     if ctx.mode == "decode":
         pos = ctx.cache_pos
-        ck, cv = cache["k"], cache["v"]
-        S = ck.shape[1]
+        S = cache["k"].shape[1]
         slot = pos % S if windowed else pos
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        put(cache, "k", k[:, 0], (slice(None), slot))
+        put(cache, "v", v[:, 0], (slice(None), slot))
         if windowed:
             kv_pos = _rolling_pos(pos, S, x.device)
             kv_valid = kv_pos >= 0
         else:
             kv_pos = torch.arange(S, device=x.device)
             kv_valid = kv_pos <= pos
-        o = dot_attention(q, ck.to(x.dtype), cv.to(x.dtype), ctx.positions,
-                          kv_pos, causal=True, window=window,
-                          kv_valid=kv_valid[None, :].expand(x.shape[0], S))
+        o = decode_attention(q, cache["k"], cache["v"], ctx.positions,
+                             kv_pos, kv_valid, window=window)
     else:
         o = attention(q, k, v, causal=True, window=window)
         if cache is not None:
-            T, S = x.shape[1], cache["k"].shape[1]
-            for c, new in ((cache["k"], k), (cache["v"], v)):
-                if windowed and T > S:
-                    # the last S positions, position t in slot t % S
-                    c.copy_(torch.roll(new[:, T - S:], (T - S) % S, dims=1))
-                else:
-                    c[:, :T] = new.to(c.dtype)
-                    c[:, T:] = 0
+            prefill_put(cache, k, v, windowed)
     return attn_out(p["attn"], o)
+
+
+def prefill_put(cache, k, v, windowed: bool = False) -> None:
+    """A prompt's k, v [B, T, Hkv, D] into a layer's cache of S slots:
+    positions 0..T-1 and zeros after them; a rolling (``windowed``) cache
+    shorter than the prompt keeps the last S positions, position t in slot
+    t % S."""
+    T, S = k.shape[1], cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        if windowed and T > S:
+            # positions T-S .. T-s0-1 to slots s0 .., the rest to slots 0 ..
+            s0 = (T - S) % S
+            put(cache, name, new[:, T - S:T - s0], (slice(None), slice(s0, S)))
+            put(cache, name, new[:, T - s0:], (slice(None), slice(0, s0)))
+        else:
+            put(cache, name, new, (slice(None), slice(0, T)))
+            put(cache, name, 0, (slice(None), slice(T, None)))
+
+
+def decode_attention(q, ck, cv, q_pos, kv_pos, kv_valid, *, window=0):
+    """One query position over a cache: q [B, 1, H, D], ck, cv [B, S, Hkv,
+    D] (cast to q's dtype), ``kv_valid`` [S] -> [B, 1, H, D], plain
+    (``dot_attention``), as the reference leaves it outside any kernel.
+    DTensors run on each rank's batch rows and query heads, the cache's
+    sequence whole (``local_heads``)."""
+    def plain(ql, kl, vl):
+        valid = kv_valid[None, :].expand(ql.shape[0], kl.shape[1])
+        return dot_attention(ql, kl.to(ql.dtype), vl.to(ql.dtype), q_pos,
+                             kv_pos, causal=True, window=window,
+                             kv_valid=valid)
+    if isinstance(q, DTensor):
+        return local_heads(plain, q, ck, cv)
+    return plain(q, ck, cv)
 
 
 def apply_block(p, x, block: str, ctx: Ctx, cache=None):
@@ -324,9 +353,11 @@ def embed_tokens(params, tokens, cfg: ModelConfig, dtype, rules=None):
 
 
 def logits_fn(params, x, cfg: ModelConfig):
+    """x [..., d] -> logits [..., vocab]; sharded, on the flat rows of x
+    (``layers._mm``), so the logits keep x's batch sharding."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        return _mm(x, params["embed"].to(x.dtype).T)
+    return _mm(x, params["lm_head"].to(x.dtype))
 
 
 def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
@@ -358,7 +389,7 @@ def forward(params, x, cfg: ModelConfig, ctx: Ctx, cache=None):
             for j, block in enumerate(blocks):
                 c = None
                 if seg_cache is not None:
-                    c = {n: t[i] for n, t in seg_cache[f"b{j}"].items()}
+                    c = LayerCache(seg_cache[f"b{j}"], i)
                 p = seg_params[f"b{j}"][i]
                 if ctx.mode == "train":
                     x, aux = checkpoint(apply_block, p, x, block, ctx,

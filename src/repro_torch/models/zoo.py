@@ -9,9 +9,11 @@ reference's key paths with a layer index after the block, e.g.
 
 With a ``dist`` (``distributed.make_dist(mesh)``) each parameter is a
 DTensor on the mesh, placed by ``spec_tree(decl, dist.rules, mesh)``, and
-``loss`` runs sharded. Sharded serving (``prefill``, ``decode_step``) is
-the reference's dry-run lowering with its cache specs, which belongs to
-the "Launch analysis" item of ROADMAP.md; those raise under a mesh.
+``loss``, ``prefill`` and ``decode_step`` run sharded, inside
+``sharded_ops()``. ``init_cache`` then makes each cache tensor a DTensor
+placed by ``launch.dryrun.cache_specs`` (the reference's dry run lowers
+its sharded serving with the same specs); the blocks write into it
+through ``models.cache.put``, into each rank's local shards.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ import contextlib
 import numpy as np
 import torch
 
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor import zeros as sharded_zeros
 
 from .. import resolve_device
 from ..distributed.placement import placements
@@ -30,6 +35,7 @@ from . import encdec as encdec_mod
 from . import transformer as tf
 from .base import (ParamTree, ShardingRules, abstract_tree, init_tree,
                    param_count, spec_tree)
+from .cache import put
 from .config import ModelConfig
 
 
@@ -41,10 +47,28 @@ def as_device_tensor(x, device) -> torch.Tensor:
     return x.to(device)
 
 
+def _pick(logp, labels):
+    return logp.gather(-1, labels[..., None])[..., 0]
+
+
 def _xent(logits, labels):
-    """Mean next-token cross-entropy: f32 log-softmax, the label's entry."""
+    """Mean next-token cross-entropy: f32 log-softmax, the label's entry.
+    Sharded logits pick the label's entry under ``local_map``, on each
+    rank's rows with the labels placed alike: DTensor's gather would take
+    a replicated index, and its backward would allocate the
+    log-probabilities' whole global shape on every rank."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels[..., None])[..., 0].mean()
+    if isinstance(logp, DTensor):
+        mesh = logp.device_mesh
+        rows = tuple(p if p == Shard(0) else Replicate()
+                     for p in logp.placements)
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+        return -local_map(_pick, out_placements=[*rows],
+                          in_placements=(rows, rows),
+                          in_grad_placements=(rows, rows), device_mesh=mesh,
+                          redistribute_inputs=True)(logp, labels).mean()
+    return -_pick(logp, labels).mean()
 
 
 def _distribute(tree, specs, mesh):
@@ -138,8 +162,7 @@ class Model(ParamTree):
         ctx = tf.Ctx(cfg=cfg, mode="train", dist=self.dist,
                      positions=torch.arange(T, device=tokens.device))
         with self.sharded_ops():
-            x = tf.embed_tokens(params, inputs, cfg, dt,
-                                self.dist.rules if self.dist else None)
+            x = tf.embed_tokens(params, inputs, cfg, dt, self._rules())
             if self.is_encdec:
                 enc_out = encdec_mod.encode(params, self._frames(batch), cfg,
                                             ctx)
@@ -158,19 +181,34 @@ class Model(ParamTree):
         return contextlib.nullcontext() if self.dist is None \
             else sharded_ops()
 
-    def _unsharded(self, what: str) -> None:
-        if self.dist is not None:
-            raise NotImplementedError(
-                f"sharded {what} (the reference lowers it with its cache "
-                "specs in the dry run) belongs to the 'Launch analysis' item "
-                "of ROADMAP.md")
+    def _rules(self):
+        return self.dist.rules if self.dist is not None else None
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16) -> dict:
-        if self.is_encdec:
-            return encdec_mod.encdec_cache(self.cfg, batch, seq_len, dtype,
-                                           device=self.device)
-        return tf.init_cache(self.cfg, batch, seq_len, dtype, device=self.device)
+        """Zeros (``transformer.init_cache``, ``encdec.encdec_cache``) on
+        the model's device; with a ``dist``, each tensor a DTensor placed
+        by ``launch.dryrun.cache_specs`` (its shards made on each rank)."""
+        make = encdec_mod.encdec_cache if self.is_encdec else tf.init_cache
+        if self.dist is None:
+            return make(self.cfg, batch, seq_len, dtype, device=self.device)
+        from ..launch.dryrun import cache_specs   # it imports this module
+        shapes = make(self.cfg, batch, seq_len, dtype, device="meta")
+        mesh = self.dist.mesh
+
+        def place(tree, spec):
+            if isinstance(tree, dict):
+                return {k: place(tree[k], spec[k]) for k in tree}
+            if isinstance(tree, list):
+                return [place(t, sp) for t, sp in zip(tree, spec)]
+            if not isinstance(tree, torch.Tensor):
+                return tree                                  # pos
+            return sharded_zeros(tree.shape, dtype=tree.dtype,
+                                 device_mesh=mesh,
+                                 placements=placements(spec, mesh,
+                                                       tree.shape))
+
+        return place(shapes, cache_specs(shapes, self.cfg, self.dist))
 
     def _capacity(self, cache: dict):
         if self.is_encdec:
@@ -192,46 +230,61 @@ class Model(ParamTree):
         if cap is not None and T > cap:
             raise ValueError(f"prompt of {T} tokens exceeds the cache "
                              f"({cap} positions)")
-        ctx = tf.Ctx(cfg=self.cfg, mode="prefill",
+        ctx = tf.Ctx(cfg=self.cfg, mode="prefill", dist=self.dist,
                      positions=torch.arange(T, device=tokens.device))
-        x = tf.embed_tokens(self, tokens, self.cfg, self._dtype())
-        if self.is_encdec:
-            enc_out = encdec_mod.encode(self, self._frames(batch), self.cfg,
-                                        ctx)
-            ek, ev = encdec_mod.cross_kv(self, enc_out)
-            for name, new in (("enc_k", ek), ("enc_v", ev)):
-                if cache[name].shape == new.shape:
-                    cache[name].copy_(new)
-                else:
-                    cache[name] = new.to(cache[name].dtype)
-            x = encdec_mod.decode_blocks(self, x, self.cfg, ctx, ek, ev,
-                                         cache=cache["self_kv"])
-        else:
-            x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
-        cache["pos"] = T
-        return tf.logits_fn(self, x[:, -1], self.cfg), cache
+        with self.sharded_ops():
+            x = tf.embed_tokens(self, tokens, self.cfg, self._dtype(),
+                                self._rules())
+            if self.is_encdec:
+                enc_out = encdec_mod.encode(self, self._frames(batch),
+                                            self.cfg, ctx)
+                ek, ev = encdec_mod.cross_kv(self, enc_out)
+                for name, new in (("enc_k", ek), ("enc_v", ev)):
+                    if cache[name].shape == new.shape:
+                        put(cache, name, new)
+                    else:
+                        cache[name] = self._placed(
+                            name, new.to(cache[name].dtype))
+                x = encdec_mod.decode_blocks(self, x, self.cfg, ctx, ek, ev,
+                                             cache=cache["self_kv"])
+            else:
+                x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
+            cache["pos"] = T
+            return tf.logits_fn(self, x[:, -1], self.cfg), cache
+
+    def _placed(self, name: str, t):
+        """A DTensor cache entry ``t`` placed by ``cache_specs``; a plain
+        tensor as it is."""
+        if not isinstance(t, DTensor):
+            return t
+        from ..launch.dryrun import cache_specs
+        mesh = t.device_mesh
+        spec = cache_specs({name: t}, self.cfg, self.dist)[name]
+        return t.redistribute(mesh, placements(spec, mesh, t.shape))
 
     def decode_step(self, cache: dict, tokens):
         """tokens: [B, 1] at position ``cache["pos"]`` -> (logits [B, V],
         cache), the cache extended in place. Raises once the full/global
         caches are full; a model whose attention is all windowed decodes
         without end."""
-        self._unsharded("decode")
         pos = cache["pos"]
         cap = self._capacity(cache)
         if cap is not None and pos >= cap:
             raise ValueError(f"cache full at position {pos}")
         ctx = tf.Ctx(cfg=self.cfg, mode="decode", cache_pos=pos,
+                     dist=self.dist,
                      positions=torch.arange(pos, pos + 1, device=tokens.device))
-        x = tf.embed_tokens(self, tokens, self.cfg, self._dtype())
-        if self.is_encdec:
-            x = encdec_mod.decode_blocks(self, x, self.cfg, ctx,
-                                         cache["enc_k"], cache["enc_v"],
-                                         cache=cache["self_kv"])
-        else:
-            x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
-        cache["pos"] = pos + 1
-        return tf.logits_fn(self, x[:, 0], self.cfg), cache
+        with self.sharded_ops():
+            x = tf.embed_tokens(self, tokens, self.cfg, self._dtype(),
+                                self._rules())
+            if self.is_encdec:
+                x = encdec_mod.decode_blocks(self, x, self.cfg, ctx,
+                                             cache["enc_k"], cache["enc_v"],
+                                             cache=cache["self_kv"])
+            else:
+                x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
+            cache["pos"] = pos + 1
+            return tf.logits_fn(self, x[:, 0], self.cfg), cache
 
 
 def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0,

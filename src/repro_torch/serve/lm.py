@@ -1,5 +1,7 @@
 """Batched serving engine, ported from ``repro.serve.lm``: prefill once,
-then decode greedily."""
+then decode greedily. A sharded model (``build(cfg, dist=...)``) serves
+through the same entry: its caches are DTensors, and logits that come
+back sharded (over the vocab) are gathered whole before the argmax."""
 
 from __future__ import annotations
 
@@ -10,7 +12,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from .. import resolve_device
+
+
+def _greedy(logits) -> torch.Tensor:
+    """The argmax token [B, 1] of logits [B, V], gathered whole first where
+    they are a DTensor."""
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
+    return logits.argmax(dim=-1)[:, None]
 
 
 @dataclass
@@ -37,7 +49,11 @@ class ServeEngine:
         greedy continuation int32[B, max_new_tokens] and the phases' wall
         times."""
         B, _ = prompts.shape
-        with torch.inference_mode():
+        # a sharded model runs under no_grad: DTensor under inference_mode
+        # takes a view of a sharded dim on its local size (the head split
+        # of a projection sharded over 'model' raises in torch 2.13)
+        sharded = getattr(self.model, "dist", None) is not None
+        with torch.no_grad() if sharded else torch.inference_mode():
             cache = self.model.init_cache(B, self.max_seq, dtype=torch.float32)
             batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int64),
                                                device=self.device)}
@@ -53,12 +69,12 @@ class ServeEngine:
             # generated tokens stay on the device; one copy to the host at the end
             out = torch.empty((B, max_new_tokens), dtype=torch.int64,
                               device=self.device)
-            tok = logits.argmax(dim=-1)[:, None]
+            tok = _greedy(logits)
             t0 = time.perf_counter()
             for i in range(max_new_tokens):
                 out[:, i] = tok[:, 0]
                 logits, cache = self.model.decode_step(cache, tok)
-                tok = logits.argmax(dim=-1)[:, None]
+                tok = _greedy(logits)
             self._sync()
             t_decode = time.perf_counter() - t0
             tokens = out.cpu().numpy().astype(np.int32)

@@ -278,6 +278,17 @@ LOSS_ARCHS = ("llama3_2_1b", "rwkv6_7b", "gemma3_12b", "starcoder2_15b",
               "whisper_base") + MOE_ARCHS
 
 
+# sharded serving: one smoke config of each block family, a prompt of
+# SERVE_P tokens (past the smoke window of 8) and SERVE_STEPS decode steps;
+# on (2, 4), (2, 3) and (1, 4) at B = 2, and on (2, 2) at B = 1, where the
+# batch cannot shard and the caches' sequence is sharded over 'data' (SP)
+SERVE_ARCHS = ("llama3_2_1b", "gemma3_12b", "deepseek_moe_16b",
+               "minicpm3_4b", "recurrentgemma_9b", "rwkv6_7b", "whisper_base")
+SERVE_P, SERVE_STEPS, SERVE_MAX_SEQ = 12, 8, 24
+SERVE_MESHES = {"2x4": ([2, 4], 2), "2x3": ([2, 3], 2), "1x4": ([1, 4], 2),
+                "2x2_b1": ([2, 2], 1)}
+
+
 # make_dist's options for the train step: the default rules, and the
 # residual stream sharded over 'model' (Megatron-style sequence parallelism)
 RULES = {"default": {}, "seq_sharded": {"train_seq_sharded": True}}
@@ -288,15 +299,22 @@ def sharded(tmp_path_factory):
     """The reference's parameters and batches, the gloo runs, and the
     reference's single-device results."""
     root = tmp_path_factory.mktemp("dist")
-    ck, batches, ref = {}, {}, {"grads": {}, "loss": {}, "half_loss": {}}
+    ck, batches = {}, {}
+    ref = {"grads": {}, "loss": {}, "half_loss": {}, "params": {}}
     batches3, ref3 = {}, {"grads": {}, "loss": {}}
 
     def load(path):
         return {k: jnp.asarray(v) for k, v in np.load(path).items()}
 
+    serve_tok = {1: {}, 2: {}}
     for arch in LOSS_ARCHS:
         jm = jzoo.build(_cfg(arch))
         params = jm.init(jax.random.PRNGKey(0))
+        if arch in SERVE_ARCHS:
+            ref["params"][arch] = params
+            for B in serve_tok:
+                serve_tok[B][arch] = _batch(
+                    root / f"serve{B}_{arch}.npz", jm.cfg, (B, SERVE_P), 3)
         ck[arch] = str(root / f"ref_{arch}")
         JCheckpointManager(ck[arch], async_save=False).save(0, params)
         shape = (4, 33) if arch == "llama3_2_1b" else (4, 17)
@@ -306,7 +324,7 @@ def sharded(tmp_path_factory):
             step = jax.jit(jmake_train_step(jm, JAdamWConfig(lr=1e-3)))
             p1, _, met = step(params, jadamw_init(params), batch)
             ref["step"] = {k: float(v) for k, v in met.items()}
-            ref["params"] = jflatten(jax.tree.map(np.asarray, p1))
+            ref["stepped"] = jflatten(jax.tree.map(np.asarray, p1))
             ref["grads"][arch] = _ref_grads(lambda p: jm.loss(p, batch),
                                             params)
         elif arch in MOE_ARCHS:
@@ -334,7 +352,12 @@ def sharded(tmp_path_factory):
     train = {"task": "train", "arch": "llama3_2_1b", "lr": 1e-3,
              "ckpt": ck["llama3_2_1b"], "batch": batches["llama3_2_1b"]}
     llama = dict(losses, archs=["llama3_2_1b"], grads=["llama3_2_1b"])
-    out = _spawn(root / "w8", 8, [2, 4], [
+    serve = {mesh: {"task": "serve", "name": f"serve_{mesh}", "mesh": shape,
+                    "archs": list(SERVE_ARCHS), "ckpt": ck,
+                    "tokens": serve_tok[B], "steps": SERVE_STEPS,
+                    "max_seq": SERVE_MAX_SEQ}
+             for mesh, (shape, B) in SERVE_MESHES.items()}
+    out = _spawn(root / "w8", 8, [2, 4], [serve["2x4"],
         *(dict(train, name=f"train_{n}", rule_kw=kw)
           for n, kw in RULES.items()),
         *(dict(llama, name=f"llama_{n}", rule_kw=kw)
@@ -343,8 +366,12 @@ def sharded(tmp_path_factory):
                      archs=list(MOE_ARCHS)),
         {"task": "attention", "cases": attn}, {"task": "production"}])
     local = dict(losses, archs=list(MOE_ARCHS), grads=[])
-    out["local"] = _spawn(root / "w6", 6, [2, 3], [local])["loss_and_grads"]
-    out.update(ref=ref, ref3=ref3, dir8=root / "w8", attention=attn)
+    w6 = _spawn(root / "w6", 6, [2, 3], [local, serve["2x3"]])
+    out.update(local=w6["loss_and_grads"], serve_2x3=w6["serve_2x3"])
+    out.update(_spawn(root / "w4", 4, [1, 4],
+                      [serve["1x4"], serve["2x2_b1"]]))
+    out.update(ref=ref, ref3=ref3, attention=attn, serve_tok=serve_tok,
+               dirs={"w8": root / "w8", "w6": root / "w6", "w4": root / "w4"})
     return out
 
 
@@ -389,9 +416,9 @@ def test_sharded_train_step_matches_reference_single_device(sharded, rules):
     assert abs(got["loss"] - ref["step"]["loss"]) < STEP_TOL
     assert abs(got["grad_norm"] - ref["step"]["grad_norm"]) \
         < STEP_TOL * ref["step"]["grad_norm"]
-    params = _npz(sharded["dir8"] / f"train_{rules}", 1)
-    assert params.keys() == ref["params"].keys()
-    err = max(float(np.abs(params[k] - ref["params"][k]).max())
+    params = _npz(sharded["dirs"]["w8"] / f"train_{rules}", 1)
+    assert params.keys() == ref["stepped"].keys()
+    err = max(float(np.abs(params[k] - ref["stepped"][k]).max())
               for k in params)
     assert err < STEP_TOL, err
 
@@ -403,7 +430,7 @@ def test_sharded_gradients_match_reference(sharded, rules):
     against ``jax.grad`` of the reference's single-device loss."""
     assert abs(sharded[f"llama_{rules}"]["llama3_2_1b"]["loss"]
                - sharded["ref"]["step"]["loss"]) < STEP_TOL
-    _assert_grads_match(sharded["dir8"] / f"grads_llama_{rules}_llama3_2_1b",
+    _assert_grads_match(sharded["dirs"]["w8"] / f"grads_llama_{rules}_llama3_2_1b",
                         sharded["ref"]["grads"]["llama3_2_1b"])
 
 
@@ -420,7 +447,7 @@ def test_sharded_moe_matches_reference_single_device(sharded, arch):
     assert got["sharded"] is True
     assert abs(got["loss"] - sharded["ref"]["loss"][arch]) < MOE_TOL
     assert abs(got["loss"] - sharded["ref"]["half_loss"][arch]) < LOSS_TOL
-    _assert_grads_match(sharded["dir8"] / f"grads_loss_and_grads_{arch}",
+    _assert_grads_match(sharded["dirs"]["w8"] / f"grads_loss_and_grads_{arch}",
                         sharded["ref"]["grads"][arch])
 
 
@@ -434,7 +461,7 @@ def test_sharded_moe_on_an_unsplit_batch_matches_reference(sharded, arch):
     got = sharded["moe_b3"][arch]
     assert got["sharded"] is True
     assert abs(got["loss"] - sharded["ref3"]["loss"][arch]) < LOSS_TOL
-    _assert_grads_match(sharded["dir8"] / f"grads_moe_b3_{arch}",
+    _assert_grads_match(sharded["dirs"]["w8"] / f"grads_moe_b3_{arch}",
                         sharded["ref3"]["grads"][arch])
 
 
@@ -489,3 +516,96 @@ def test_moe_local_route_on_a_non_dividing_mesh(sharded, arch):
     got = sharded["local"][arch]
     assert got["sharded"] is False
     assert abs(got["loss"] - sharded["ref"]["loss"][arch]) < LOSS_TOL
+
+
+# ---------------------------------------------------------------------------
+# sharded serving
+# ---------------------------------------------------------------------------
+
+
+_DECODE = {}
+
+
+def _serve_reference(jm, params, batch, steps):
+    """The reference's single-device prefill of the prompt in ``batch``,
+    then a decode step on each column of ``steps`` [B, n]: the logits of
+    each call, and the cache's leaves by key path after the last."""
+    B = batch["tokens"].shape[0]
+    cache = jm.init_cache(B, SERVE_MAX_SEQ, dtype=jnp.float32)
+    lg, cache = jm.prefill(params, batch, cache)
+    logits = [np.asarray(lg)]
+    dec = _DECODE.setdefault(jm.cfg.name, jax.jit(jm.decode_step))
+    for i in range(steps.shape[1]):
+        lg, cache = dec(params, cache, jnp.asarray(steps[:, i:i + 1]))
+        logits.append(np.asarray(lg))
+    return np.stack(logits), {k: np.asarray(v)
+                              for k, v in _ref_leaves(cache).items()}
+
+
+def _reference_serving(sharded, arch, B, steps):
+    """``_serve_reference`` on the fixture's parameters and prompts and the
+    sharded engine's tokens ``steps``, and the bound of each result:
+    ``_tol`` of its scale (tests/test_torch_families.py), or twice what
+    rounding the parameters by one ulp (random signs) moves the
+    reference's own result, where that is larger (the rule of
+    ``_ref_grads``: the random init's q and k amplify the f32 softmax, and
+    the shards sum in another order). Kept in the fixture's results."""
+    from test_torch_families import _err, _tol
+    steps = np.asarray(steps, np.int32)
+    key = (arch, B, steps.tobytes())
+    memo = sharded.setdefault("ref_serving", {})
+    if key not in memo:
+        jm = jzoo.build(_cfg(arch))
+        params = sharded["ref"]["params"][arch]
+        batch = {k: jnp.asarray(v) for k, v in
+                 np.load(sharded["serve_tok"][B][arch]).items()}
+        logits, cache = _serve_reference(jm, params, batch, steps)
+        rng = np.random.default_rng(0)
+        nudged = jax.tree.map(lambda p: (p * (1 + rng.choice(
+            [-1.0, 1.0], p.shape) * 2.0**-24)).astype(np.float32), params)
+        n_logits, n_cache = _serve_reference(jm, nudged, batch, steps)
+        bound = {"logits": max(_tol(float(np.abs(logits[0]).max())),
+                               2 * _err(n_logits, logits))}
+        bound.update({k: max(_tol(float(np.abs(v).max())),
+                             2 * _err(n_cache[k], v))
+                      for k, v in cache.items()})
+        memo[key] = (logits, cache, bound)
+    return memo[key]
+
+
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_serving_matches_reference(sharded, arch, mesh):
+    """``ServeEngine`` on the sharded model (caches DTensors placed by
+    ``cache_specs``): a prefill of 12 tokens (past the smoke window of 8)
+    and 8 greedy decode steps. The logits of every call against the
+    reference's single-device ``prefill``/``decode_step`` fed the same
+    tokens, and every cache tensor whole after the last; the position;
+    the tokens equal to the unsharded engine's. Each bound
+    is ``_tol`` of the result's scale, or twice the reference's own move
+    under a one-ulp nudge of its parameters where larger
+    (``_reference_serving``). On (2, 2) the
+    batch of 1 cannot shard, so the caches' sequence is sharded over
+    'data' (SP): rolling windows, MLA latents and one-position writes into
+    another rank's shard included."""
+    from test_torch_families import _err
+    shape, B = SERVE_MESHES[mesh]
+    got = sharded[f"serve_{mesh}"][arch]
+    world = "w8" if mesh == "2x4" else "w6" if mesh == "2x3" else "w4"
+    npz = dict(np.load(sharded["dirs"][world] / f"serve_serve_{mesh}_{arch}.npz"))
+    want_logits, want_cache, bound = _reference_serving(
+        sharded, arch, B, got["sharded"])
+    assert _err(npz.pop("logits"), want_logits) < bound["logits"]
+    assert got["pos"] == SERVE_P + SERVE_STEPS == int(want_cache["pos"])
+    assert npz.keys() == want_cache.keys() - {"pos"}
+    for k, want in want_cache.items():
+        if k != "pos":
+            assert npz[k].shape == want.shape, k
+            assert _err(npz[k], want) < bound[k], k
+    if mesh == "2x2_b1":
+        # the batch cannot shard: the attention caches [L, B, S, Hkv, D]
+        # shard their sequence over 'data' (the mesh's first dim)
+        kv = [p for k, p in got["placements"].items()
+              if k.split("/")[-1] in ("k", "v")]
+        assert all(p[0] == 2 for p in kv), got["placements"]
+    assert got["sharded"] == got["unsharded"]

@@ -308,18 +308,16 @@ def test_import_guard_covers_the_slice_modules(rel):
 def test_no_stub_is_left(rel):
     """``Dataset.profile``/``write_to``/``delete_where``, the
     ``BULLION_TRACE`` export, the encoder-decoder (``frames`` in the model
-    and the engine, whisper-base's config) and the dataset service are
-    implemented: nothing raises NotImplementedError there, but for sharded
-    serving in ``models/zoo.py``, which belongs to the "Launch analysis"
-    item of ROADMAP.md and says so."""
-    tree = ast.parse((PORT / rel).read_text())
+    and the engine, whisper-base's config), the dataset service and
+    sharded serving (``prefill``/``decode_step`` under a mesh, in
+    ``models/zoo.py``) are implemented: nothing raises NotImplementedError
+    there, and nothing cites the "Launch analysis" item of ROADMAP.md."""
+    src = (PORT / rel).read_text()
+    tree = ast.parse(src)
     raised = [ast.dump(n.exc) for n in ast.walk(tree)
               if isinstance(n, ast.Raise) and n.exc is not None]
-    stubs = [r for r in raised if "NotImplementedError" in r]
-    if rel == "models/zoo.py":
-        assert len(stubs) == 1 and "Launch analysis" in stubs[0]
-    else:
-        assert not stubs
+    assert not [r for r in raised if "NotImplementedError" in r]
+    assert "Launch analysis" not in src
 
 
 @pytest.mark.parametrize("rel", ["models/moe.py", "models/rwkv6.py",
@@ -362,6 +360,9 @@ NOT_PORTED = {
     "models/transformer.py": {"stack_decl"},
     # the port's Model initialises its parameters when it is built
     "models/zoo.py": {"Model.init"},
+    # the HLO-text parser: the port counts the ops that run (a dispatch
+    # mode), not the text of a compiled program
+    "launch/hlo_cost.py": {"parse_module", "Op", "Computation"},
 }
 
 

@@ -171,13 +171,84 @@ def task_elastic(mesh, t, out):
     return res
 
 
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return (t.full_tensor() if isinstance(t, DTensor) else t).numpy()
+
+
+def _cache_leaves(tree, prefix=""):
+    """A cache's tensors by '/'-joined key path."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _cache_leaves(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, x in enumerate(tree):
+            yield from _cache_leaves(x, f"{prefix}{i}/")
+    elif isinstance(tree, torch.Tensor):
+        yield prefix[:-1], tree
+
+
+def _recorded(model) -> dict:
+    """Record the logits of each ``prefill``/``decode_step`` call of
+    ``model`` (whole) and the last cache it made (``rec``)."""
+    rec = {"logits": []}
+    prefill, decode, init = model.prefill, model.decode_step, model.init_cache
+
+    def keep(out):
+        rec["logits"].append(_whole(out[0]))
+        return out
+
+    def init_cache(*args, **kwargs):
+        rec["cache"] = init(*args, **kwargs)
+        return rec["cache"]
+
+    model.prefill = lambda *a: keep(prefill(*a))
+    model.decode_step = lambda *a: keep(decode(*a))
+    model.init_cache = init_cache
+    return rec
+
+
+def task_serve(mesh, t, out):
+    """Sharded serving of each arch (on the mesh ``t["mesh"]`` where given):
+    the JAX package's parameters restored onto the mesh, ``ServeEngine``
+    over the saved prompts (and frames), ``t["steps"]`` greedy tokens; the
+    logits of its prefill and of each decode step and every cache tensor
+    whole after the last (``serve_<name>_<arch>.npz``), its tokens and the
+    unsharded engine's on the same parameters, and the dim each mesh axis
+    shards in each cache tensor."""
+    from repro_torch.serve import ServeEngine
+    if "mesh" in t:
+        mesh = make_test_mesh(*t["mesh"])
+    res = {}
+    for arch in t["archs"]:
+        m = _model(arch, mesh, t["ckpt"][arch])
+        batch = _batch(t["tokens"][arch])
+        rec = _recorded(m)
+        m0 = zoo.build(_cfg(arch), device="cpu")
+        CheckpointManager(t["ckpt"][arch]).restore(m0, device="cpu")
+        gen = {name: ServeEngine(model, max_seq=t["max_seq"], device="cpu")
+               .generate(batch["tokens"], t["steps"],
+                         frames=batch.get("frames"))["tokens"].tolist()
+               for name, model in (("sharded", m), ("unsharded", m0))}
+        cache = rec["cache"]
+        leaves = {k: _whole(v) for k, v in _cache_leaves(cache)}
+        # the dim each mesh axis shards, None where it replicates
+        plc = {k: [getattr(p, "dim", None) for p in v.placements]
+               for k, v in _cache_leaves(cache)}
+        res[arch] = {"pos": cache["pos"], "placements": plc, **gen}
+        if tdist.get_rank() == 0:
+            np.savez(os.path.join(out, f"serve_{_name(t)}_{arch}.npz"),
+                     logits=np.stack(rec["logits"]), **leaves)
+    return res
+
+
 def _name(t: dict) -> str:
     return t.get("name", t["task"])
 
 
 TASKS = {"train": task_train, "loss_and_grads": task_loss_and_grads,
          "attention": task_attention, "production": task_production, "save": task_save,
-         "elastic": task_elastic}
+         "elastic": task_elastic, "serve": task_serve}
 
 
 def _rank(rank: int, job: dict) -> None:

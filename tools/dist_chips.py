@@ -1,12 +1,26 @@
 #!/usr/bin/env python3
-"""The port's sharded training step across the cards of one host: one rank
-a card over NCCL, llama3.2-1b at full width and f32, B=8 x S=512, built
+"""The port's sharded training step and sharded serving across the cards
+of one host: one rank a card over NCCL, llama3.2-1b at full width, built
 with ``build(cfg, dist=make_dist(mesh))`` on each mesh of ``--meshes``
-("data" x "model"), against the unsharded step on rank 0's card from the
+("data" x "model"), against the unsharded model on rank 0's card from the
 same parameters and batch.
 
     python3 tools/dist_chips.py [--meshes 2x2 1x4 4x1] [--layers 1 16]
                                 [--steps 3]
+
+Serving (B=8 prompts of 512 tokens, 8 new tokens through
+``ServeEngine``, caches placed by ``cache_specs``): for each depth and
+mesh, one JSON line with ``"serve": true``: the prefill's and a decode
+step's ms (host clock around a synchronise, the engine's second run), the
+prefill logits' gap to rank 0's unsharded prefill and its bound (2e-2 x
+max|ref| + 1e-3, phase serve's), the greedy tokens' equality with the
+unsharded engine's, the flash launches a prefill by body. At one layer,
+in f32 (the `simt` body: the shards' sums in another order move a logit
+by about 1e-6 of its size, so no greedy choice is near enough a tie to
+flip), the gap must be within the bound and the tokens equal; at full
+depth, in bf16 as served (`wgmma`), the random init amplifies rounding
+past it (ROADMAP.md §3) and bf16 near-ties may flip a token, so both are
+printed as witnesses beside the times.
 
 For each depth of ``--layers`` and each mesh, one JSON line: the step time
 (host clock around a synchronise, the median of steps 2 on), each rank's
@@ -48,14 +62,98 @@ import torch.multiprocessing as mp  # noqa: E402
 
 OPT = dict(lr=1e-3, warmup_steps=10, total_steps=100)   # the launcher's
 BATCH, SEQ = 8, 512
+NEW = 8             # serving: new tokens a prompt
 LOSS_TOL = 1e-5     # the loss before any step, sharded against unsharded
 GRAD_REL = 1e-3     # a leaf's gradient gap over its largest entry
 
 
-def _cfg(layers: int):
+def _cfg(layers: int, dtype: str = "float32"):
     import repro_torch.configs as configs
     return configs.get("llama3.2-1b").scaled(
-        compute_dtype="float32", segments=((("full:swiglu",), layers),))
+        compute_dtype=dtype, segments=((("full:swiglu",), layers),))
+
+
+def _serve(model, prompts):
+    """The engine's second run (the first warms up): (tokens, prefill ms,
+    decode ms a step, flash launches by body in that run)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, max_seq=SEQ + NEW, device="cuda")
+    eng.generate(prompts, NEW)
+    before = dict(flash_attention.launches_by_body)
+    out = eng.generate(prompts, NEW)
+    by_body = {b: n - before[b]
+               for b, n in flash_attention.launches_by_body.items()}
+    return (out["tokens"], out["prefill_s"] * 1e3,
+            out["decode_s"] * 1e3 / NEW, by_body)
+
+
+def _prefill_logits(model, prompts):
+    from torch.distributed.tensor import DTensor
+    with torch.no_grad():
+        cache = model.init_cache(BATCH, SEQ + NEW, dtype=torch.float32)
+        lg, _ = model.prefill({"tokens": torch.as_tensor(
+            prompts, dtype=torch.int64, device="cuda")}, cache)
+    return lg.full_tensor() if isinstance(lg, DTensor) else lg
+
+
+def _serve_meshes(args, rank: int, world: int) -> None:
+    """Sharded serving on every mesh against rank 0's unsharded model, one
+    JSON line a depth and mesh (rank 0)."""
+    from repro_torch.distributed import make_dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.zoo import build
+    for layers in args.layers:
+        dtype = torch.float32 if layers == 1 else torch.bfloat16
+        cfg = _cfg(layers, str(dtype).replace("torch.", ""))
+        prompts = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (BATCH, SEQ)).astype(np.int32)
+        ref = None
+        if rank == 0:
+            m0 = build(cfg, device="cuda", dtype=dtype, seed=args.seed)
+            ref = (_prefill_logits(m0, prompts).float(), *_serve(m0, prompts))
+            del m0
+            torch.cuda.empty_cache()
+        tdist.barrier()
+        for shape in args.meshes:
+            mesh = make_test_mesh(*shape)
+            model = build(cfg, device="cuda", dtype=dtype, seed=args.seed,
+                          dist=make_dist(mesh))
+            lg = _prefill_logits(model, prompts).float()
+            tokens, prefill_ms, decode_ms, by_body = _serve(model, prompts)
+            rows = [None] * world
+            tdist.all_gather_object(rows, dict(prefill_ms=prefill_ms,
+                                               decode_ms=decode_ms,
+                                               by_body=by_body))
+            if rank == 0:
+                gap = (lg - ref[0]).abs().max().item()
+                bound = 2e-2 * ref[0].abs().max().item() + 1e-3
+                line = dict(serve=True, mesh=dict(data=shape[0],
+                                                  model=shape[1]),
+                            n_layers=layers, batch=BATCH, prompt_len=SEQ,
+                            new_tokens=NEW, dtype=cfg.compute_dtype,
+                            prefill_ms=[r["prefill_ms"] for r in rows],
+                            decode_ms_per_step=[r["decode_ms"]
+                                                for r in rows],
+                            unsharded_prefill_ms=ref[2],
+                            unsharded_decode_ms_per_step=ref[3],
+                            logit_gap=gap, logit_bound=bound,
+                            tokens_equal=bool((tokens == ref[1]).all()),
+                            held=layers == 1,
+                            flash_launches_by_rank=[r["by_body"]
+                                                    for r in rows])
+                print(json.dumps(line), flush=True)
+                if layers == 1 and not (gap < bound
+                                        and line["tokens_equal"]):
+                    raise RuntimeError(f"serving on mesh {shape}: {line}")
+                want = dict(simt=layers if layers == 1 else 0, mma=0,
+                            wgmma=0 if layers == 1 else layers)
+                if any(r["by_body"] != want for r in rows):
+                    raise RuntimeError(f"serving launches {rows}, "
+                                       f"expected {want} a prefill")
+            del model
+            torch.cuda.empty_cache()
+            tdist.barrier()
 
 
 def _grads(model, tokens) -> tuple[float, dict]:
@@ -138,6 +236,7 @@ def _rank(rank: int, args, store: str) -> None:
     tdist.init_process_group("nccl", store=tdist.FileStore(store, world),
                              rank=rank, world_size=world)
     try:
+        _serve_meshes(args, rank, world)
         for layers in args.layers:
             cfg = _cfg(layers)
             hold = layers == 1
