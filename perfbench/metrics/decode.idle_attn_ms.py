@@ -1,0 +1,10 @@
+"""The device's idle time a decode step while the host runs attention: the
+complement of the union of the trace's device intervals, inside
+``serve.decode`` spans, during which the host was inside a ``layer.attn``
+span (an attention sublayer, its cache write and cast), ms."""
+
+from perfbench.lib import spans
+
+
+def read(ctx):
+    return spans.idle_ms_per_step(ctx, "layer.attn")

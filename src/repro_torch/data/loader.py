@@ -191,7 +191,9 @@ class BullionLoader:
             self._thread = threading.Thread(target=self._produce, daemon=True)
             self._thread.start()
         while True:
-            item = self._queue.get()
+            # the consumer blocked on the prefetch thread
+            with _trace.span("loader.wait", cat="loader", rank=self.rank):
+                item = self._queue.get()
             if isinstance(item, Exception):
                 raise item
             yield item

@@ -37,6 +37,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..distributed.collectives import pmean, psum
 from ..distributed.placement import placements
+from ..obs import trace as _trace
 from .base import P, mesh_axes
 
 PRODUCTION_M = 16  # model-axis size of the reference's production mesh
@@ -165,38 +166,46 @@ def moe_apply(p, x, cfg, *, model_axis=None, all_axes=(), mesh=None):
     ``model_axis`` it runs on one rank's local shards of ``mesh`` (under
     ``local_map``): ``p`` holds the rank's chunks (and its slice of the
     shared experts' d_ff), and the outputs are summed over ``model_axis``
-    and the aux loss averaged over ``all_axes``."""
+    and the aux loss averaged over ``all_axes``. Its four stages run in
+    spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+    ``moe.combine`` (the shared experts and the sums over ranks in the
+    last)."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, T)
 
-    w, idx, aux = _route(xt, p["router"], k)
-    buf, slot, keep = _dispatch(xt, idx, E, C)
-    if model_axis is None:
-        out = _experts(buf, p, E, x.dtype)
-    else:
-        dim = list(mesh.mesh_dim_names).index(model_axis)
-        out = _experts(buf, p, E, x.dtype, mesh.get_local_rank(model_axis),
-                       mesh.size(dim))
-    out = out.reshape(E * C, d)
+    with _trace.span("moe.route", cat="model"):
+        w, idx, aux = _route(xt, p["router"], k)
+    with _trace.span("moe.dispatch", cat="model"):
+        buf, slot, keep = _dispatch(xt, idx, E, C)
+    with _trace.span("moe.experts", cat="model"):
+        if model_axis is None:
+            out = _experts(buf, p, E, x.dtype)
+        else:
+            dim = list(mesh.mesh_dim_names).index(model_axis)
+            out = _experts(buf, p, E, x.dtype,
+                           mesh.get_local_rank(model_axis), mesh.size(dim))
+        out = out.reshape(E * C, d)
 
-    # combine: each (token, choice) pair's output, weighted, summed over k
-    gathered = torch.where(keep[:, None],
-                           out[torch.clamp(slot, max=E * C - 1)],
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    y = (gathered.reshape(T, k, d) * w[..., None]).sum(dim=1)
+    with _trace.span("moe.combine", cat="model"):
+        # each (token, choice) pair's output, weighted, summed over k
+        gathered = torch.where(keep[:, None],
+                               out[torch.clamp(slot, max=E * C - 1)],
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+        y = (gathered.reshape(T, k, d) * w[..., None]).sum(dim=1)
 
-    if cfg.n_shared:
-        sp = p["shared"]
-        g = xt @ sp["w_gate"].to(x.dtype)
-        u = xt @ sp["w_up"].to(x.dtype)
-        y = y + (F.silu(g) * u) @ sp["w_down"].to(x.dtype)
-    if model_axis is not None:
-        y = psum(y, mesh, (model_axis,))
-    if all_axes:
-        aux = pmean(aux, mesh, all_axes)
+        if cfg.n_shared:
+            sp = p["shared"]
+            g = xt @ sp["w_gate"].to(x.dtype)
+            u = xt @ sp["w_up"].to(x.dtype)
+            y = y + (F.silu(g) * u) @ sp["w_down"].to(x.dtype)
+        if model_axis is not None:
+            y = psum(y, mesh, (model_axis,))
+        if all_axes:
+            aux = pmean(aux, mesh, all_axes)
     return y.reshape(B, S, d), aux
 
 

@@ -52,6 +52,7 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from ..distributed.placement import grad_placements, placements
+from ..obs import trace as _trace
 from .base import P, constrain
 from .cache import LayerCache, put
 from .config import ModelConfig
@@ -290,26 +291,31 @@ def decode_attention(q, ck, cv, q_pos, kv_pos, kv_valid, *, window=0):
 def apply_block(p, x, block: str, ctx: Ctx, cache=None):
     """One block; ``cache`` (this layer's) is filled (prefill) or extended
     (decode) in place. Returns (x, aux): the MoE block's load-balancing
-    loss (a 0-d f32 tensor), 0.0 for the others."""
+    loss (a 0-d f32 tensor), 0.0 for the others. The attention sublayer of
+    every kind, its cache write included, runs in a ``layer.attn`` span
+    (an RWKV layer whole: its channel mix is inside the same block), the
+    MoE block in a ``layer.moe`` span."""
     cfg = ctx.cfg
     attn_kind, mlp_kind = block.split(":")
-    if attn_kind == "rwkv":
-        return rwkv_mod.rwkv_block(
-            p, x, cache, cfg=cfg, dist=ctx.dist,
-            use_chunked=cfg.rwkv_chunked and ctx.mode != "decode"), 0.0
-    if attn_kind == "mla":
-        x = x + mla_mod.mla_attention(p["attn"], _norm(cfg, p["ln_attn"], x),
-                                      ctx.positions, cfg, cache=cache,
-                                      cache_pos=ctx.cache_pos)
-    elif attn_kind == "rglru":
-        x = rglru_mod.rglru_block(p["rec"], x, cache, cfg=cfg)
-    else:
-        x = x + attn_sublayer(p, x, attn_kind, ctx, cache)
+    with _trace.span("layer.attn", cat="model"):
+        if attn_kind == "rwkv":
+            return rwkv_mod.rwkv_block(
+                p, x, cache, cfg=cfg, dist=ctx.dist,
+                use_chunked=cfg.rwkv_chunked and ctx.mode != "decode"), 0.0
+        if attn_kind == "mla":
+            x = x + mla_mod.mla_attention(
+                p["attn"], _norm(cfg, p["ln_attn"], x), ctx.positions, cfg,
+                cache=cache, cache_pos=ctx.cache_pos)
+        elif attn_kind == "rglru":
+            x = rglru_mod.rglru_block(p["rec"], x, cache, cfg=cfg)
+        else:
+            x = x + attn_sublayer(p, x, attn_kind, ctx, cache)
     if mlp_kind == "none":
         return x, 0.0
     xn = _norm(cfg, p["ln_mlp"], x)
     if mlp_kind == "moe":
-        y, aux = moe_mod.moe_block(p["moe"], xn, cfg, ctx.dist)
+        with _trace.span("layer.moe", cat="model"):
+            y, aux = moe_mod.moe_block(p["moe"], xn, cfg, ctx.dist)
         return x + y, aux
     mlp = gelu_mlp if mlp_kind == "gelu" else swiglu
     return x + mlp(p["mlp"], xn), 0.0

@@ -9,7 +9,9 @@ included — may depend on it without cycles):
   process-wide slot. Disabled (the default) it is a no-op that allocates
   nothing on the hot path; ``collect()`` scopes a tracer to a block
   (forwarding to any enclosing recording), ``BULLION_TRACE=path`` records
-  process-wide and exports Chrome trace JSON at exit.
+  process-wide and exports Chrome trace JSON at exit. Spans start on the
+  clock ``torch.profiler`` stamps its events with (``profiler_us``), and
+  ``device_span()`` adds the device time of the work enqueued inside it.
 * ``metrics`` — a process-wide ``MetricsRegistry`` of named counters and
   log-scale histograms (pread latency, coalesced-run sizes, queue depth,
   per-encoding-family page decode time). Counters absorb ``IOStats`` when
@@ -23,8 +25,8 @@ included — may depend on it without cycles):
   (JSONL sink) — by local ``Dataset`` terminals; ``BULLION_SLOW_MS``
   promotes slow queries' full span lists into their records.
 * ``expose`` — the registry snapshot rendered as Prometheus text format
-  (what the dataset server's ``metrics`` command serves; the server is not
-  ported yet).
+  (what the dataset server's ``metrics`` command serves,
+  ``serve/server.py``).
 
 Entry points most callers want::
 
@@ -43,8 +45,9 @@ from .metrics import (Counter, Histogram, MetricsRegistry, REGISTRY,
                       absorb_iostats, counter, histogram, snapshot)
 from .querylog import QueryLog, QueryRecord
 from .trace import (NULL_SPAN, Span, SpanRecord, StageAgg, Tracer,
-                    aggregate_spans, collect, disable, enable, enabled,
-                    install, span, span_from_dict, span_to_dict, traced)
+                    aggregate_spans, collect, device_span, disable, enable,
+                    enabled, install, profiler_us, span, span_from_dict,
+                    span_to_dict, traced)
 
 # honor BULLION_TRACE=path as soon as the first instrumented module loads
 trace.init_from_env()
@@ -52,7 +55,8 @@ trace.init_from_env()
 __all__ = [
     "trace", "metrics", "querylog", "expose",
     "Span", "SpanRecord", "StageAgg", "Tracer", "NULL_SPAN",
-    "span", "collect", "traced", "enable", "disable", "enabled", "install",
+    "span", "device_span", "collect", "traced", "enable", "disable",
+    "enabled", "install", "profiler_us",
     "span_to_dict", "span_from_dict", "aggregate_spans",
     "Counter", "Histogram", "MetricsRegistry", "REGISTRY",
     "counter", "histogram", "snapshot", "absorb_iostats",

@@ -2,14 +2,26 @@
 
 One process-wide tracer slot drives every instrumentation point in the
 read/write stack (``plan.optimize``/``lower``, ``Scanner.plan``, the
-``IOScheduler``, ``decode_group``'s stages, the sink, the loader). The
+``IOScheduler``, ``decode_group``'s stages, the sink, the loader) and in
+the model path (``serve.decode``, ``layer.attn``, ``layer.moe`` and its
+``moe.*`` parts, ``train.forward``/``backward``/``optimizer``). The
 contract the hot paths rely on:
 
-* **disabled is free** — with no tracer installed, ``span()`` returns one
-  shared no-op context manager and allocates no ``Span`` object at all.
-  ``allocations()`` counts every real span ever created, so tests assert
-  the disabled hot path stays span-allocation-free; the bench_io wide
-  probe gates the wall-clock overhead (< 2%).
+* **disabled is free** — with no tracer installed, ``span()`` and
+  ``device_span()`` return one shared no-op context manager and allocate
+  no ``Span`` object at all. ``allocations()`` counts every real span ever
+  created, so tests assert the disabled hot path stays span-allocation-free
+  (``tests/test_torch_trace.py``: a scan, a decode and a training step).
+* **one clock with the profiler** — a span starts on CLOCK_REALTIME
+  (``time.time_ns()``), the clock ``torch.profiler`` stamps its host and
+  device events with, so ``profiler_us(rec)`` places a span on the
+  profiler's timeline beside the device's ops; its duration is read on
+  ``perf_counter``.
+* **device time** — ``device_span()`` also records a pair of CUDA events
+  around its block on the current stream (where CUDA is initialised) and
+  resolves them into ``args["device_s"]`` when its ``collect()`` scope
+  closes or its tracer is aggregated or exported; on the CPU, where work
+  is synchronous, ``device_s`` is the span's own duration.
 * **enabled is thread-safe** — finished spans append to the tracer's list
   under a lock; spans started on scheduler/loader/pool threads record on
   whatever thread finishes them (the span holds its own tracer reference,
@@ -35,13 +47,13 @@ import threading
 import time
 from typing import Callable, Optional
 
-# all trace timestamps are seconds relative to this module's load instant —
-# a monotonic zero shared by every thread in the process. The wall-clock
-# instant of the same zero lets two processes exchange spans on a shared
-# (wall) timebase: rel -> wall is `ts + _EPOCH_WALL`, wall -> rel is
-# `ts - _EPOCH_WALL` in the receiving process.
-_EPOCH = time.perf_counter()
-_EPOCH_WALL = time.time()
+# all trace timestamps are seconds relative to this module's load instant on
+# CLOCK_REALTIME, the clock the profiler stamps its events with; a zero shared
+# by every thread in the process. The same zero lets two processes exchange
+# spans on a shared (wall) timebase: rel -> wall is `ts + _EPOCH_WALL`,
+# wall -> rel is `ts - _EPOCH_WALL` in the receiving process.
+_EPOCH_NS = time.time_ns()
+_EPOCH_WALL = _EPOCH_NS / 1e9
 
 _DEFAULT_CAP = 200_000
 
@@ -70,7 +82,7 @@ class SpanRecord:
                  tid: int, tname: str, args: dict):
         self.name = name
         self.cat = cat
-        self.ts = ts            # seconds since _EPOCH
+        self.ts = ts            # seconds since _EPOCH_NS
         self.dur = dur          # seconds
         self.tid = tid
         self.tname = tname
@@ -94,6 +106,12 @@ def _arg_safe(v):
         if c == v:
             return c
     return str(v)
+
+
+def profiler_us(rec: SpanRecord) -> float:
+    """A record's start in the profiler's microseconds: on the timeline of
+    ``torch.profiler``'s events (``start_ns() / 1e3``), host and device."""
+    return _EPOCH_NS / 1e3 + rec.ts * 1e6
 
 
 def span_to_dict(rec: SpanRecord, *, wall: bool = False) -> dict:
@@ -150,7 +168,7 @@ def allocations() -> int:
 class Span:
     """A live span: context manager recording wall time on exit."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "args", "_ts", "_t0")
     enabled = True
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
@@ -161,7 +179,7 @@ class Span:
         self.name = name
         self.cat = cat
         self.args = args
-        self._t0 = 0.0
+        self._ts = self._t0 = 0.0
 
     def set(self, **kw) -> "Span":
         """Attach attributes mid-span (guard expensive computation with
@@ -171,15 +189,58 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._t0 = time.perf_counter()
+        self._ts = (time.time_ns() - _EPOCH_NS) / 1e9
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = time.perf_counter()
-        th = threading.current_thread()
-        self._tracer._record(SpanRecord(
-            self.name, self.cat, self._t0 - _EPOCH, t1 - self._t0,
-            th.ident or 0, th.name, self.args))
+        self._tracer._record(self._finish())
         return False
+
+    def _finish(self) -> SpanRecord:
+        dur = time.perf_counter() - self._t0
+        th = threading.current_thread()
+        return SpanRecord(self.name, self.cat, self._ts, dur, th.ident or 0,
+                          th.name, self.args)
+
+
+class DeviceSpan(Span):
+    """A span that also times, on the device, the work enqueued inside it:
+    a pair of CUDA events on the current stream, resolved into
+    ``args["device_s"]`` later (``Tracer.resolve``), so that closing the
+    span never waits for the device. Without CUDA initialised the work ran
+    on the host, synchronously: ``device_s`` is the span's ``dur``."""
+
+    __slots__ = ("_events",)
+
+    def __enter__(self) -> "DeviceSpan":
+        self._events = None
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._events = (start, torch.cuda.Event(enable_timing=True))
+        return super().__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        if self._events is None:
+            rec = self._finish()
+            rec.args["device_s"] = rec.dur
+            self._tracer._record(rec)
+        else:
+            start, end = self._events
+            end.record()
+            rec = self._finish()
+            self._tracer._record(rec, (rec, start, end))
+        return False
+
+
+def _resolve(pending) -> None:
+    """Fill a device span's ``device_s`` from its events, waiting for the
+    end event; once (a forwarded record is the same object)."""
+    rec, start, end = pending
+    if "device_s" not in rec.args:
+        end.synchronize()
+        rec.args["device_s"] = start.elapsed_time(end) / 1e3
 
 
 class StageAgg:
@@ -212,25 +273,37 @@ class Tracer:
         self.spans: list[SpanRecord] = []
         self.dropped = 0
         self._forward = forward
+        self._pending: list = []      # device spans' unresolved events
         self._lock = threading.Lock()
 
     def span(self, name: str, cat: str = "bullion",
              args: Optional[dict] = None) -> Span:
         return Span(self, name, cat, {} if args is None else args)
 
-    def _record(self, rec: SpanRecord) -> None:
+    def _record(self, rec: SpanRecord, pending=None) -> None:
         with self._lock:
             if len(self.spans) < self.max_spans:
                 self.spans.append(rec)
+                if pending is not None:
+                    self._pending.append(pending)
             else:
                 self.dropped += 1
         if self._forward is not None:
-            self._forward._record(rec)
+            self._forward._record(rec, pending)
+
+    def resolve(self) -> None:
+        """Fill ``device_s`` into every device span recorded so far,
+        waiting for the device where their work is still running."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for p in pending:
+            _resolve(p)
 
     def aggregate(self) -> dict[str, StageAgg]:
         """Per-name totals (thread-safe snapshot): count, summed seconds,
         summed numeric args. Parallel stages can sum past wall clock —
         the totals are CPU-side time across threads."""
+        self.resolve()
         with self._lock:
             spans = list(self.spans)
         return aggregate_spans(spans)
@@ -300,10 +373,22 @@ def span(name: str, cat: str = "bullion", **args):
     return t.span(name, cat, args)
 
 
+def device_span(name: str, cat: str = "bullion", **args):
+    """``span()`` that also records the device time of the work enqueued
+    inside it (``DeviceSpan``): for device-bound stages, where the host
+    runs ahead and a host span measures only the enqueueing. Disabled: the
+    shared no-op span, and no torch import."""
+    t = _tracer
+    if t is None:
+        return NULL_SPAN
+    return DeviceSpan(t, name, cat, args)
+
+
 class collect:
     """``with collect() as tr:`` — scoped tracing. Installs a fresh tracer
     for the block (forwarding to whatever it shadowed) and restores the
-    previous tracer on exit; ``tr.spans`` holds the block's spans."""
+    previous tracer on exit; ``tr.spans`` holds the block's spans, their
+    device times resolved."""
 
     def __init__(self, *, max_spans: Optional[int] = None):
         self._max_spans = max_spans
@@ -318,6 +403,7 @@ class collect:
 
     def __exit__(self, *exc) -> bool:
         install(self._prev)
+        self.tracer.resolve()
         return False
 
 
@@ -351,6 +437,7 @@ def _write_env_trace() -> None:
         return
     from .export import write_trace
     try:
+        _env_tracer.resolve()
         write_trace(_env_path, _env_tracer.spans,
                     dropped=_env_tracer.dropped)
     except Exception as e:  # never fail interpreter shutdown

@@ -15,6 +15,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
+from ..obs import trace as _trace
 
 
 def _greedy(logits) -> torch.Tensor:
@@ -70,13 +71,15 @@ class ServeEngine:
             out = torch.empty((B, max_new_tokens), dtype=torch.int64,
                               device=self.device)
             tok = _greedy(logits)
-            t0 = time.perf_counter()
-            for i in range(max_new_tokens):
-                out[:, i] = tok[:, 0]
-                logits, cache = self.model.decode_step(cache, tok)
-                tok = _greedy(logits)
-            self._sync()
-            t_decode = time.perf_counter() - t0
+            with _trace.span("serve.decode", cat="serve",
+                             steps=max_new_tokens, batch=B):
+                t0 = time.perf_counter()
+                for i in range(max_new_tokens):
+                    out[:, i] = tok[:, 0]
+                    logits, cache = self.model.decode_step(cache, tok)
+                    tok = _greedy(logits)
+                self._sync()
+                t_decode = time.perf_counter() - t0
             tokens = out.cpu().numpy().astype(np.int32)
         return {"tokens": tokens,
                 "prefill_s": t_prefill,

@@ -10,6 +10,7 @@ import torch
 
 from .. import resolve_device
 from ..models.zoo import as_device_tensor
+from ..obs import trace as _trace
 from .optimizer import AdamWConfig, placed_like, adamw_update
 
 
@@ -37,8 +38,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
 
     def value_and_grad(batch):
         with model.sharded_ops():
-            loss = model.loss(batch)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            with _trace.device_span("train.forward", cat="train"):
+                loss = model.loss(batch)
+            # the layers' recompute (each a checkpoint) runs in here
+            with _trace.device_span("train.backward", cat="train"):
+                grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), {k: placed_like(g, params[k])
                                for k, g in zip(params, grads)}
 
@@ -68,7 +72,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
         loss, grads = grads_of(batch)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        stats = adamw_update(grads, opt_state, params, opt_cfg)
+        with _trace.device_span("train.optimizer", cat="train"):
+            stats = adamw_update(grads, opt_state, params, opt_cfg)
         return {"loss": loss, **stats}
 
     return train_step

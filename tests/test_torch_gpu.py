@@ -882,3 +882,73 @@ def test_sharded_moe_on_one_card(nccl_mesh):
         assert flash_attention.launches == before + cfg.n_layers
     assert sharded_route(m.segments[1].b0[0].moe, m.dist)
     assert abs(losses[0] - losses[1]) < 2e-3
+
+
+def test_decode_span_holds_its_device_ops_on_the_profilers_clock(cuda):
+    """The tracer's spans and the profiler's device ops share one clock:
+    in a small ``generate``, every device op launched by a host op inside
+    the ``serve.decode`` span (matched by the profiler's correlation ids)
+    starts after the span does and ends before it ends, since the span
+    closes after a synchronise; and no device op straddles the span's
+    end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import trace
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get_smoke("deepseek_moe_16b").scaled(
+        compute_dtype="bfloat16")
+    engine = ServeEngine(build(cfg, device=cuda), max_seq=48, device=cuda)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (4, 16)) \
+        .astype(np.int32)
+    steps = 8
+    engine.generate(prompts, steps)
+    with trace.collect() as tr, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompts, steps)
+    (dec,) = [s for s in tr.spans if s.name == "serve.decode"]
+    a = trace.profiler_us(dec)
+    b = a + dec.dur * 1e6
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()]
+    host = {e.correlation_id(): e for e in events
+            if e.device_type() == DeviceType.CPU
+            and not e.name().startswith("cu")}
+    launched = [e for e in device
+                if e.linked_correlation_id() in host
+                and a <= host[e.linked_correlation_id()].start_ns() / 1e3 <= b]
+    assert len(launched) >= steps * cfg.n_layers, (len(launched), len(device))
+    assert a <= min(e.start_ns() for e in launched) / 1e3
+    assert max(e.end_ns() for e in launched) / 1e3 <= b
+    for e in device:
+        s, t = e.start_ns() / 1e3, e.end_ns() / 1e3
+        assert not s < b < t, (e.name(), s, t, b)
+
+
+def test_train_device_spans_cover_a_synchronised_step(cuda):
+    """A step's ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` device times (CUDA events) sum to within 10% of the
+    step's host time, closed by reading the loss."""
+    import time
+    from repro_torch.obs import trace
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    cfg = configs.get_smoke("deepseek_moe_16b").scaled(
+        compute_dtype="float32")
+    model = build(cfg, device=cuda)
+    step = make_train_step(model, AdamWConfig(), device=cuda)
+    opt = adamw_init(model)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (8, 257), device=cuda)}
+    for _ in range(2):
+        float(step(opt, batch)["loss"])
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with trace.collect() as tr:
+            t0 = time.perf_counter()
+            float(step(opt, batch)["loss"])
+            host_s = time.perf_counter() - t0
+        dev = {s.name: s.args["device_s"] for s in tr.spans
+               if s.name.startswith("train.")}
+        assert sorted(dev) == ["train.backward", "train.forward",
+                               "train.optimizer"]
+        assert abs(sum(dev.values()) - host_s) <= 0.1 * host_s, (dev, host_s)
