@@ -162,10 +162,19 @@ Phases, one JSON line each:
                         and 32
  17. scan           -- the read path: launch counts per scan (the filter once
                        a row group evaluated, the column-list dequant once a
-                       decode call with a BF16 or affine column), results
-                       equal to the NumPy route, serially and on 4 threads,
-                       scan times, and the time split (host stages, device
-                       copies and kernels)
+                       decode call with a BF16 or affine column, the page
+                       unpack once a decode call that routes a page or has
+                       such a column), results equal to the NumPy route,
+                       serially and on 4 threads, scan times, and the time
+                       split (host stages, device copies and kernels); then
+                       page_unpack: the benchmark's ads-criteo table at one
+                       row group of 2**19 rows, its LEVEL2 delete applied,
+                       read on the card (one unpack and one dequant launch,
+                       equal to the NumPy route), and that read's unpack
+                       staging replayed through the wrapper against
+                       page_unpack_ref on the card, bit for bit: kernel_ms,
+                       bound_ms (its bytes at 3.35 TB/s), plain_ms, and the
+                       host's NumPy decode of the same pages
  18. service        -- DatasetServer(device="cuda") on the ads table, 4
                        socket sessions x 25 queries (range, projection,
                        probes): launches equal to the queries' alone,
@@ -322,9 +331,10 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.dequant import dequant, dequant_packed
     from repro_torch.kernels.filter import range_mask
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.page_unpack import page_unpack
     return {"flash_attention": flash_attention, "range_mask": range_mask,
             "dequant": dequant, "dequant_packed": dequant_packed,
-            "bitunpack": bitunpack}
+            "bitunpack": bitunpack, "page_unpack": page_unpack}
 
 
 def zero_counts() -> None:
@@ -341,6 +351,38 @@ def zero_counts() -> None:
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+@contextlib.contextmanager
+def decode_calls():
+    """While open, tallies the read path's ``decode_group`` calls on the
+    card, from any thread (``page_route.DeviceDecode.launch``): ``routed``,
+    the calls in which a page took the device route, ``pages`` their
+    pages, and ``unpack``, the calls that launch the page-unpack kernel
+    once each: those that route a page or have a column for the dequant
+    kernel."""
+    import threading
+
+    from repro_torch import resolve_device
+    from repro_torch.dataset import page_route
+    real = page_route.DeviceDecode.launch
+    tally = {"routed": 0, "pages": 0, "unpack": 0}
+    lock = threading.Lock()
+
+    def launch(self, columns):
+        if resolve_device(self.device).type == "cuda":
+            dq = any(col.params is not None for col in columns)
+            with lock:
+                tally["routed"] += self.taken > 0
+                tally["pages"] += self.taken
+                tally["unpack"] += self.taken > 0 or dq
+        return real(self, columns)
+
+    page_route.DeviceDecode.launch = launch
+    try:
+        yield tally
+    finally:
+        page_route.DeviceDecode.launch = real
 
 
 # ---------------------------------------------------------------------------
@@ -796,7 +838,8 @@ def phase_serve(seed: int):
     launches = launched["flash_attention"]
     by_body = dict(flash_attention.launches_by_body)
     check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
-                           dequant=0, dequant_packed=0, bitunpack=0),
+                           dequant=0, dequant_packed=0, bitunpack=0,
+                           page_unpack=0),
           f"serving launched {launched}, expected flash_attention "
           f"{cfg.n_layers} times and no other kernel")
     check(by_body == dict(simt=0, mma=0, wgmma=cfg.n_layers),
@@ -1489,7 +1532,8 @@ def _serve_family(seed: int, run: dict) -> int:
     body = "wgmma"        # every family: aligned bf16, D <= 256
     attending = sum(_windows(cfg).values())
     check(launched == dict(flash_attention=attending, range_mask=0,
-                           dequant=0, dequant_packed=0, bitunpack=0),
+                           dequant=0, dequant_packed=0, bitunpack=0,
+                           page_unpack=0),
           f"{cfg.name}: serving launched {launched}, expected "
           f"flash_attention {attending} times (once a layer that attends) "
           f"and no other kernel")
@@ -2193,7 +2237,7 @@ def phase_bitunpack_kernels(seed: int) -> tuple[int, float]:
     wall_s = time.perf_counter() - t0
     launched = counts()
     check(launched == dict(flash_attention=0, range_mask=0, dequant=0,
-                           dequant_packed=0, bitunpack=1),
+                           dequant_packed=0, bitunpack=1, page_unpack=0),
           f"bitunpack path launched {launched}")
     check(np.array_equal(out.cpu().numpy(), values),
           "bitunpack of pack_bp32 differs from the values packed")
@@ -2294,15 +2338,17 @@ def _device_split(prof) -> dict:
     from torch.autograd import DeviceType
     split = {"h2d_ms": 0.0, "d2h_ms": 0.0, "h2d_pinned_ms": 0.0,
              "d2h_pinned_ms": 0.0, "filter_kernel_ms": 0.0,
-             "dequant_kernel_ms": 0.0, "other_ms": 0.0}
-    calls = {"filter_kernel": 0, "dequant_kernel": 0}
+             "dequant_kernel_ms": 0.0, "unpack_kernel_ms": 0.0,
+             "other_ms": 0.0}
+    calls = {"filter_kernel": 0, "dequant_kernel": 0, "unpack_kernel": 0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         ms = e.self_device_time_total / 1e3
         key = ("h2d" if "HtoD" in e.key else "d2h" if "DtoH" in e.key
                else "filter_kernel" if "range_mask" in e.key
-               else "dequant_kernel" if "dequant" in e.key else "other")
+               else "dequant_kernel" if "dequant" in e.key
+               else "unpack_kernel" if "page_unpack" in e.key else "other")
         split[key + "_ms"] += ms
         if key in ("h2d", "d2h") and "Pinned" in e.key:
             split[key + "_pinned_ms"] += ms
@@ -2311,10 +2357,10 @@ def _device_split(prof) -> dict:
     return {**split, "kernel_calls": calls}
 
 
-def phase_scan(seed: int, tmp: str) -> tuple[int, int]:
+def phase_scan(seed: int, tmp: str) -> dict:
     """The predicate read path on three tables written by the port's writer
-    into ``tmp`` (where the later phases find them); returns the filter's
-    and the dequant kernel's launches in the ads table's serial scan."""
+    into ``tmp`` (where the later phases find them); returns the launches
+    of each kernel in the ads table's serial scan."""
     from repro_torch.data import (write_ads_table, write_lm_corpus,
                                   write_quant_table)
     from repro_torch.dataset import dataset
@@ -2347,14 +2393,23 @@ def phase_scan(seed: int, tmp: str) -> tuple[int, int]:
         for label, kw in (("serial", {}),
                           ("parallel", dict(parallelism=4, io_depth=2))):
             zero_counts()
-            got = ds.to_table(**kw)                     # the main path
+            with decode_calls() as calls:
+                got = ds.to_table(**kw)                 # the main path
             launched = counts()
             check(launched == dict(flash_attention=0, range_mask=groups,
                                    dequant=0, dequant_packed=want_dq,
-                                   bitunpack=0),
+                                   bitunpack=0, page_unpack=calls["unpack"]),
                   f"{query} {label}: launched {launched}, expected the "
                   f"filter once for each of {groups} evaluated row "
-                  f"groups and the column-list dequant {want_dq} times")
+                  f"groups, the column-list dequant {want_dq} times and "
+                  f"the page unpack once for each decode call that routes "
+                  f"a page or dequantizes ({calls})")
+            # every dequantizing call launches the unpack; each of the ads
+            # scan's calls has a BF16 column
+            check(calls["unpack"] >= want_dq and (
+                query != "ads" or calls["unpack"] == want_dq),
+                  f"{query} {label}: {calls} against {want_dq} dequant "
+                  "launches")
             runs[label] = (got, launched)
             if query == "ads" and label == "serial":
                 main_launches = launched
@@ -2408,7 +2463,7 @@ def phase_scan(seed: int, tmp: str) -> tuple[int, int]:
              predicate=repr(pred), dequantized=dequantized,
              rows=ds.num_rows, rows_out=n_out, row_groups=groups,
              launches_serial=runs["serial"][1],
-             launches_parallel=runs["parallel"][1],
+             launches_parallel=runs["parallel"][1], decode_calls=calls,
              equal_to_numpy_route=True,
              scan_ms=times["serial"] * 1e3,
              rows_per_s=ds.num_rows / times["serial"],
@@ -2419,7 +2474,122 @@ def phase_scan(seed: int, tmp: str) -> tuple[int, int]:
              traced_ms=traced_s * 1e3, host_stages=stages,
              host_ms_by_column=by_column,
              profiled_ms=profiled_s * 1e3, device=_device_split(prof))
-    return main_launches["range_mask"], main_launches["dequant_packed"]
+    return main_launches
+
+
+PAGE_UNPACK_ROWS = 2**19       # one row group of the benchmark's table
+
+
+def phase_page_unpack(seed: int) -> dict:
+    """The benchmark's ``ads-criteo`` table (``perfbench/configs``, its
+    generator and its LEVEL2 delete) at one row group of 2**19 rows, read
+    whole on the card, dequantized, as the ``ads-scan`` cell reads it: one
+    decode call, one unpack and one dequant launch, pages on the device
+    route, the table equal to the NumPy route's. Then that call's unpack
+    staging, replayed through the wrapper (``page_unpack``, counted) into
+    a zeroed buffer, against ``page_unpack_ref`` on the card on the same
+    staging, bit for bit; the kernel's device time (``median_ms``) beside
+    its bound (``Layout.moved_bytes`` at 3.35 TB/s), the plain version's
+    (CUDA events, one call) and the host's NumPy decode of the same
+    device-route pages (``decode_page``, then ``apply_dv``); the launch
+    also carries the host-route pages of the BF16 columns, as pages of
+    their codes. Returns the row of the kernels line."""
+    from perfbench.lib import tables
+    from repro_torch.core import pages as pages_mod
+    from repro_torch.core.footer import PageType
+    from repro_torch.dataset import dataset, page_route
+    from repro_torch.kernels.page_unpack import page_unpack, page_unpack_ref
+    from repro_torch.obs import metrics
+
+    class _Stages:
+        def mark(self, name):
+            pass
+
+    cfg = json.loads((ROOT / "perfbench/configs/ads-criteo.json").read_text())
+    cfg["rows"] = PAGE_UNPACK_ROWS
+    columns = json.loads((ROOT / "perfbench/traffic/scan-4pred.json")
+                         .read_text())["columns"]
+    table = tables.make(cfg, seed, "cuda", _Stages())
+    try:
+        staged, taken = [], []
+        real_unpack, real_take = page_route.page_unpack, \
+            page_route.DeviceDecode.take
+
+        def unpack(staging, layout, out):
+            staged.append((staging.clone(), layout, torch.zeros_like(out)))
+            return real_unpack(staging, layout, out)
+
+        def take(self, blob, page_rows, dtype, dv=None, align=False):
+            page = real_take(self, blob, page_rows, dtype, dv, align)
+            if page is not None:
+                taken.append((blob, page_rows, dv))
+            return page
+
+        def read(device, use_kernel=None):
+            with dataset(table.path, device=device) as ds:
+                return ds.select(columns).dequantized(True) \
+                    ._with_kernel(use_kernel).to_table()
+
+        device_pages = metrics.counter("bullion.decode.pages_device")
+        before = device_pages.value
+        page_route.page_unpack, page_route.DeviceDecode.take = unpack, take
+        zero_counts()
+        try:
+            with decode_calls() as calls:
+                got = read("cuda")                          # the main path
+        finally:
+            page_route.page_unpack, page_route.DeviceDecode.take = \
+                real_unpack, real_take
+        launched = counts()
+        routed = device_pages.value - before
+        check(launched == dict(flash_attention=0, range_mask=0, dequant=0,
+                               dequant_packed=1, bitunpack=0, page_unpack=1)
+              and calls == dict(routed=1, pages=routed, unpack=1)
+              and len(staged) == 1 and routed == len(taken) > 0,
+              f"page_unpack: one group's read launched {launched}, decode "
+              f"calls {calls}, {routed} pages routed")
+        check(_same_table(got, read("cuda", use_kernel=False)),
+              "page_unpack: the read differs from the NumPy route")
+        staging, layout, out = staged[0]
+        plain = torch.zeros_like(out)
+        page_unpack(staging, layout, out)                   # the wrapper
+        page_unpack_ref(staging, layout.n_pages, plain)
+        torch.cuda.synchronize()
+        check(page_unpack.launches == 2, f"page_unpack: the replay launched "
+              f"{page_unpack.launches - 1} times")
+        bad = int((out != plain).sum())
+        check(bad == 0, f"page_unpack: {bad} bytes of the kernel's output "
+              "differ from page_unpack_ref on the same staging")
+        kernel_ms = median_ms(lambda: page_unpack(staging, layout, out))
+        plain_ms = []
+        for _ in range(3):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            page_unpack_ref(staging, layout.n_pages, plain)
+            stop.record()
+            stop.synchronize()
+            plain_ms.append(start.elapsed_time(stop))
+        scalar = int(PageType.SCALAR)
+        t0 = time.perf_counter()
+        for blob, page_rows, dv in taken:
+            pages_mod.apply_dv(pages_mod.decode_page(scalar, blob), dv,
+                               page_rows)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        row = dict(rows=PAGE_UNPACK_ROWS, columns=len(columns),
+                   pages=layout.n_pages, pages_routed=routed,
+                   blocks=layout.n_blocks, bytes=layout.moved_bytes,
+                   kernel_ms=kernel_ms,
+                   bound_ms=layout.moved_bytes / HBM_BYTES_PER_S * 1e3,
+                   plain_ms=float(np.median(plain_ms)),
+                   numpy_ms=numpy_ms, mismatches=bad)
+        emit("page_unpack", main_path="dataset(..., device='cuda')"
+             ".select(22 columns).dequantized().to_table()",
+             launches=launched, equal_to_numpy_route=True,
+             equal_to_plain_on_card=True, **row)
+        return row
+    finally:
+        table.remove()
 
 
 SERVICE_SESSIONS, SERVICE_QUERIES = 4, 25     # client sessions, queries each
@@ -2493,12 +2663,17 @@ def phase_service(seed: int, tmp: str) -> dict:
             DatasetServer({"ads": ads}, device="cpu") as cpu:
         for _, q in kinds:
             zero_counts()
-            srv.query("ads", **q)
+            with decode_calls() as calls:
+                srv.query("ads", **q)
             solo.append(counts())
+            check(solo[-1]["page_unpack"] == calls["unpack"],
+                  f"service: a query launched {solo[-1]}, its decode "
+                  f"calls {calls}")
             want.append(cpu.query("ads", **q).table)
     setup_s = time.perf_counter() - t0
     expect = {k: sum(c[k] for c in solo) for k in solo[0]}
     check(expect["range_mask"] > 0 and expect["dequant_packed"] > 0
+          and expect["page_unpack"] >= expect["dequant_packed"]
           and expect["flash_attention"] == expect["dequant"] ==
           expect["bitunpack"] == 0,
           f"service: the queries alone launched {expect}")
@@ -2656,16 +2831,22 @@ def phase_compliance(tmp: str) -> dict:
         shutil.copyfile(ads, on_cpu)
         zero_counts()
         t0 = time.perf_counter()
-        st = delete_where(on_card, pred, Compliance(level), device="cuda")
+        with decode_calls() as calls:
+            st = delete_where(on_card, pred, Compliance(level),
+                              device="cuda")
         host_s = time.perf_counter() - t0
         got = counts()
         t0 = time.perf_counter()
         st_cpu = delete_where(on_cpu, pred, Compliance(level), device="cpu")
         cpu_s = time.perf_counter() - t0
         check(got == dict(flash_attention=0, range_mask=want_f, dequant=0,
-                          dequant_packed=want_dq, bitunpack=0),
+                          dequant_packed=want_dq, bitunpack=0,
+                          page_unpack=calls["unpack"])
+              and calls["unpack"] >= want_dq,
               f"compliance {case}: launched {got}, expected the filter "
-              f"{want_f} times and the column-list dequant {want_dq}")
+              f"{want_f} times, the column-list dequant {want_dq} and the "
+              f"page unpack once a decode call that routes or dequantizes "
+              f"({calls})")
         check(st == st_cpu, f"compliance {case}: {st} != {st_cpu} (cpu)")
         check(_sha256(on_card) == _sha256(on_cpu),
               f"compliance {case}: the file differs from the cpu route's")
@@ -2724,15 +2905,18 @@ def phase_sink(tmp: str, victims) -> dict:
         out = os.path.join(tmp, f"sink_{dev}")
         zero_counts()
         t0 = time.perf_counter()
-        with dataset(ads, device=dev) as ds:
+        with dataset(ads, device=dev) as ds, decode_calls() as calls:
             res = ds.where(pred).dequantized().write_to(
                 out, sort_by="dense_0", shard_rows=SINK_SHARD_ROWS)
         outs[dev] = (out, res, time.perf_counter() - t0, counts())
+        if dev == "cuda":
+            unpack = calls["unpack"]
     out, res, host_s, got = outs["cuda"]
     check(got == dict(flash_attention=0, range_mask=groups, dequant=0,
-                      dequant_packed=want_dq, bitunpack=0),
-          f"sink: launched {got}, expected the filter {groups} times and the "
-          f"column-list dequant {want_dq}")
+                      dequant_packed=want_dq, bitunpack=0,
+                      page_unpack=unpack) and unpack >= want_dq,
+          f"sink: launched {got}, expected the filter {groups} times, the "
+          f"column-list dequant {want_dq} and the page unpack {unpack}")
     check(outs["cpu"][3] == dict.fromkeys(got, 0), "sink: the cpu route "
           f"launched {outs['cpu'][3]}")
     check(dataclasses.asdict(res) | {"paths": None} ==
@@ -2852,20 +3036,23 @@ def phase_loader(seed: int, tmp: str) -> dict:
         scan_groups = _evaluated_groups(ds)
         want_scan = dataset(corpus, device="cpu").where(pred).to_table()
         zero_counts()
-        it = iter(loader)
-        batches, scans = [], 0
-        for i in range(n_batches):
-            batches.append(next(it))
-            if i % 24 == 0:
-                check(_same_table(ds.to_table(), want_scan),
-                      "loader: a scan beside the loader's thread differs")
-                scans += 1
-        loader.close()
+        with decode_calls() as calls:
+            it = iter(loader)
+            batches, scans = [], 0
+            for i in range(n_batches):
+                batches.append(next(it))
+                if i % 24 == 0:
+                    check(_same_table(ds.to_table(), want_scan),
+                          "loader: a scan beside the loader's thread "
+                          "differs")
+                    scans += 1
+            loader.close()
         got = counts()
     check(got["range_mask"] == len(reads) + scans * scan_groups and
-          got["dequant_packed"] == 0,
+          got["dequant_packed"] == 0 and got["page_unpack"] == calls["unpack"],
           f"loader: launched {got} while the loader read {len(reads)} groups "
-          f"and {scans} scans {scan_groups} groups each")
+          f"and {scans} scans {scan_groups} groups each, decode calls "
+          f"{calls}")
     check(_same_batches(batches, _take(BullionLoader(
         corpus, device="cpu", rank=0, world=2, predicate=pred, **LOADER),
         n_batches)), "loader: batches beside a scan differ")
@@ -3138,7 +3325,7 @@ def phase_train(seed: int, tmp: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = 2 * cfg.n_layers * TRAIN["steps"]
     check(launched == dict(flash_attention=want, range_mask=0, dequant=0,
-                           dequant_packed=0, bitunpack=0),
+                           dequant_packed=0, bitunpack=0, page_unpack=0),
           f"training launched {launched}, expected flash_attention {want} "
           "times (2 a layer a step) and no other kernel")
     check(by_body == dict(simt=want, mma=0, wgmma=0),
@@ -3483,7 +3670,7 @@ def phase_distributed(seed: int, tmp: str) -> dict:
                    param_gap=gap, param_gap_at=where, tol=DIST["step_tol"])
         emit("distributed", **row)
         check(launched == dict(flash_attention=want, range_mask=0, dequant=0,
-                               dequant_packed=0, bitunpack=0),
+                               dequant_packed=0, bitunpack=0, page_unpack=0),
               f"the sharded steps launched {launched}, expected "
               f"flash_attention {want} times (2 a layer a step)")
         check(by_body == dict(simt=want, mma=0, wgmma=0),
@@ -3680,7 +3867,8 @@ def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
                    fake_count_s=fake_count_s)
         emit("sharded_serve", **row)
         check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
-                               dequant=0, dequant_packed=0, bitunpack=0),
+                               dequant=0, dequant_packed=0, bitunpack=0,
+                           page_unpack=0),
               f"sharded serving launched {launched}")
         check(by_body == dict(simt=0, mma=0, wgmma=cfg.n_layers),
               f"sharded serving launched the bodies {by_body}")
@@ -4139,8 +4327,8 @@ def main(argv=None) -> int:
         return out
 
     try:
-        scan_launches, dequant_launches = timed("scan", phase_scan,
-                                                args.seed, tmp)
+        scan_ads = timed("scan", phase_scan, args.seed, tmp)
+        unpack_row = timed("page_unpack", phase_page_unpack, args.seed)
         service_launches = timed("service", phase_service, args.seed, tmp)
         compliance_launches, victims = timed("compliance", phase_compliance,
                                              tmp)
@@ -4154,8 +4342,7 @@ def main(argv=None) -> int:
         timed("dryrun", phase_dryrun, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    by_phase = {"scan_ads": {"range_mask": scan_launches,
-                             "dequant_packed": dequant_launches},
+    by_phase = {"scan_ads": scan_ads,
                 **{f"compliance_{case}": launched for case, launched
                    in compliance_launches.items()},
                 "sink": sink_launches, "loader": loader_launches,
@@ -4212,14 +4399,14 @@ def main(argv=None) -> int:
         dict(name="range_mask", route="cuda",
              source="src/repro_torch/csrc/filter.cu",
              replaces="src/repro/kernels/filter/kernel.py:31",
-             launches=scan_launches, max_abs_err=float(filter_err),
+             launches=scan_ads["range_mask"], max_abs_err=float(filter_err),
              launches_by_phase={k: v["range_mask"]
                                 for k, v in by_phase.items()},
              **filter_row),
         dict(name="dequant", route="cuda", body="columns",
              source="src/repro_torch/csrc/dequant.cu",
              replaces="src/repro/kernels/dequant/kernel.py:38",
-             launches=dequant_launches, max_abs_err=dequant_err,
+             launches=scan_ads["dequant_packed"], max_abs_err=dequant_err,
              launches_by_phase={k: v["dequant_packed"]
                                 for k, v in by_phase.items()},
              **dequant_row),
@@ -4227,7 +4414,15 @@ def main(argv=None) -> int:
              source="src/repro_torch/csrc/bitunpack.cu",
              replaces="src/repro/kernels/bitunpack/kernel.py:33",
              launches=bitunpack_launches, max_abs_err=bitunpack_err,
-             **bitunpack_row)]}), flush=True)
+             **bitunpack_row),
+        dict(name="page_unpack", route="cuda",
+             source="src/repro_torch/csrc/page_unpack.cu",
+             replaces="none: NumPy unpack_bits under FixedBitWidth.decode "
+             "and Dictionary.decode (src/repro/core/encodings/numeric.py)",
+             launches=scan_ads["page_unpack"], max_abs_err=0.0,
+             launches_by_phase={k: v["page_unpack"]
+                                for k, v in by_phase.items()},
+             **unpack_row)]}), flush=True)
     emit("done", seconds=time.perf_counter() - t0, read_phase_s=phase_s,
          families_s=families_s)
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,17 @@ out in ``execute_group``, which orders the stages exactly once:
     deletion-mask -> dequantize -> filter -> gather
 
 ``decode_group`` is the pread+decode+mask+dequantize core (moved here from
-``BullionReader.project``); its dequantize runs in the dequant kernel on the
-card (``kernels.dequant``, one launch for the BF16 and affine-integer
-columns of a call), in NumPy for the other modes. ``execute_group`` layers
-predicate evaluation (NumPy or the range-filter kernel on the card,
-``kernels.filter``) and raw-row-id selection on top. Results are NumPy
-tables on the host: the quantized codes and the filter's columns go to the
-device, the values and the mask come back.
+``BullionReader.project``); its bit-packed pages (``fixed_bit_width``,
+``dictionary``) are decoded on the card (``page_route``,
+``kernels.page_unpack``, one launch a call, deletion vectors applied in
+it), the other pages on the host; its dequantize runs in the dequant kernel
+on the card (``kernels.dequant``, one launch for the BF16 and
+affine-integer columns of a call), in NumPy for the other modes.
+``execute_group`` layers predicate evaluation (NumPy or the range-filter
+kernel on the card, ``kernels.filter``) and raw-row-id selection on top.
+Results are NumPy tables on the host: the packed pages, the quantized codes
+and the filter's columns go to the device, the values and the mask come
+back.
 """
 
 from __future__ import annotations
@@ -30,10 +34,13 @@ import torch
 from ..core import integrity as _integrity
 from ..core import pages as pages_mod
 from ..core.footer import ColKind, PageType, Sec, ShardCorruptError
+from ..core.encodings.base import code_dtype
 from ..core.quantization import QuantMode, dequantize, storage_dtype
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from ..scan.predicate import Predicate, conjunctive_ranges, evaluate
+from ..kernels.page_unpack import Page
+from .page_route import Column, DeviceDecode
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from ..core.reader import BullionReader
@@ -95,7 +102,9 @@ _FAMILY_HIST: dict[int, str] = {}
 
 def _decode_page_timed(flag: int, blob: bytes):
     """Traced-mode decode: per-page wall time lands in the per-encoding-
-    family histogram (``bullion.decode.page_seconds.<family>``)."""
+    family histogram (``bullion.decode.page_seconds.<family>``). Only the
+    host route's pages are timed so; the device route's are counted in
+    ``bullion.decode.pages_device`` and timed by their call's spans."""
     t0 = time.perf_counter()
     decoded = pages_mod.decode_page(flag, blob)
     dt = time.perf_counter() - t0
@@ -132,19 +141,11 @@ _KERNEL_QUANT_MODES = frozenset({QuantMode.BF16, QuantMode.INT8_AFFINE,
                                  QuantMode.INT16_AFFINE})
 
 
-def _dequantize_columns(staged: list, device) -> dict:
-    """The kernel-route columns of one ``decode_group`` call, ``(name,
-    codes, spec)`` each, dequantized in one ``dequant_columns`` call on
-    ``device`` (float64 arithmetic: NumPy's bits): one staged copy to the
-    card, one launch, one copy back, one synchronisation. On ``"cpu"`` the
-    kernel's plain version runs instead."""
-    from ..kernels.dequant import dequant_columns
-    codes = [val.view(np.uint16) if spec.mode == QuantMode.BF16
-             else val.astype(storage_dtype(spec.mode), copy=False)
-             for _, val, spec in staged]
-    vals = dequant_columns(codes, [(spec.scale, spec.zero)
-                                   for *_, spec in staged], device=device)
-    return {name: v.numpy() for (name, *_), v in zip(staged, vals)}
+def _kernel_codes(mode: QuantMode) -> np.dtype:
+    """The codes the dequant kernel reads for ``mode``: bf16 bits as
+    uint16, or the affine storage dtype."""
+    return np.dtype(np.uint16 if mode == QuantMode.BF16
+                    else storage_dtype(mode))
 
 
 def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
@@ -160,24 +161,41 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
     range group-wide). ``align_raw`` pads compact-deleted pages back to the
     raw row space (only meaningful with ``drop_deleted=False``); the default
     keeps physical page content, which ``verify_deleted`` audits.
-    ``use_kernel`` and ``device`` choose the dequantize route: unless
-    ``use_kernel`` is False, the BF16 and affine-integer columns go, after
-    every column is decoded, through one call of the dequant kernel's
-    column-list body on ``device`` (default ``cuda``;
-    ``_dequantize_columns``); the other modes, and every mode under
-    ``use_kernel=False``, through NumPy ``dequantize``, a column at a time.
+
+    ``use_kernel`` and ``device`` choose the routes. Unless ``use_kernel``
+    is False, the call's ``fixed_bit_width`` and ``dictionary`` scalar
+    pages are decoded on ``device`` (default ``cuda``) in one launch of the
+    page-unpack kernel, their deletion vectors applied there
+    (``page_route``), and the BF16 and affine-integer columns are
+    dequantized, after every column is decoded, in one call of the dequant
+    kernel's column-list body on ``device``; the unpack writes its pages
+    of those columns straight into that kernel's staging on the device.
+    Every other page is decoded on the host, and the other quantization
+    modes, and every mode and page under ``use_kernel=False``, go through
+    NumPy (``decode_page``, ``apply_dv``, ``dequantize``, a column at a
+    time). The counters ``bullion.decode.pages_device`` and
+    ``bullion.decode.pages_host`` count the pages of each route.
 
     Each stage is a distinct span (``decode.pread`` / ``decode.decode`` /
     ``decode.mask`` / ``decode.dequantize``) so traces and
     ``explain(analyze=True)`` attribute time per stage; with tracing
     disabled the spans are shared no-ops and the stage order is the only
     (behavior-identical) difference from an uninstrumented decode. A
-    ``decode.dequantize`` span names its ``columns`` and ``route``: one
-    span for the kernel call and its columns, one for each NumPy column.
+    ``decode.decode`` span names its column's ``route`` (``device`` when a
+    page of it took the device route, else ``host``); the call's device
+    work (its staging, one copy in, the unpack and dequant launches, one
+    copy back and one synchronisation) runs inside the last column's
+    ``decode.mask`` span, or its ``decode.decode`` span when nothing is
+    masked, once every host page is final. A ``decode.dequantize`` span
+    names its ``columns`` and ``route``: one span for the kernel's columns
+    (which hands out what that device work brought back), one for each
+    NumPy column. The ``bullion.decode.page_seconds.<family>`` histograms
+    of a traced decode time the host route's pages only.
     """
     fv = reader.footer
     cols = [fv.column_index(n) for n in names]
     kinds = fv.arr(Sec.COL_KIND, np.uint8)
+    dtypes = fv.arr(Sec.COL_DTYPE, np.uint8)
     flags = fv.arr(Sec.PAGE_FLAGS, np.uint8)
     page_rows = fv.arr(Sec.PAGE_ROWS, np.uint32)
     wanted: list[int] = []
@@ -189,9 +207,9 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
         if sp.enabled:
             sp.set(bytes=sum(len(b) for b in raw.values()))
     traced = _trace.enabled()
-    out: dict = {}
+    route = DeviceDecode(device) if use_kernel is not False else None
 
-    def _dec(c: int, p: int):
+    def _dec(c: int, p: int, dtype: np.dtype):
         blob = raw.get(p)
         if blob is None:
             # the verification gate removed a quarantined page (corruption
@@ -202,41 +220,78 @@ def decode_group(reader: "BullionReader", names: Sequence[str], group: int, *,
             if masked_out is not None:
                 masked_out.add(p)
             return _mask_fill(fv, c, int(page_rows[p]))
+        flag = int(flags[p]) & 0x7F
+        if route is not None and flag == PageType.SCALAR:
+            page = route.take(
+                blob, int(page_rows[p]), dtype,
+                fv.deletion_vector(p) if drop_deleted else None,
+                align=align_raw and not drop_deleted)
+            if page is not None:
+                return page
         if traced:
-            return _decode_page_timed(int(flags[p]) & 0x7F, blob)
-        return pages_mod.decode_page(int(flags[p]) & 0x7F, blob)
+            return _decode_page_timed(flag, blob)
+        return pages_mod.decode_page(flag, blob)
 
-    staged: list = []          # (name, codes, spec) for the dequant kernel
-    for name, c in zip(names, cols):
+    masking = drop_deleted or align_raw
+    columns: list[Column] = []
+    specs: list = []
+    for k, (name, c) in enumerate(zip(names, cols)):
         pids = _chunk_page_ids(fv, group, c, pages)
-        with _trace.span("decode.decode", cat="decode",
-                         column=name, pages=len(pids)):
-            parts = [_dec(c, p) for p in pids]
-        if drop_deleted or align_raw:
+        spec = reader.quant_spec(c) \
+            if dequant and kinds[c] == int(ColKind.SCALAR) else None
+        col = Column(name, code_dtype(int(dtypes[c])))
+        if route is not None and spec is not None \
+                and spec.mode in _KERNEL_QUANT_MODES:
+            col.dtype = _kernel_codes(spec.mode)
+            col.params = (spec.scale, spec.zero)
+        columns.append(col)
+        specs.append(spec)
+        last = k == len(names) - 1 and route is not None
+        sp = _trace.span("decode.decode", cat="decode",
+                         column=name, pages=len(pids))
+        with sp:
+            col.parts = [_dec(c, p, col.dtype) for p in pids]
+            if sp.enabled:
+                sp.set(route="device" if any(isinstance(x, Page)
+                                             for x in col.parts) else "host")
+            if last and not masking:
+                route.launch(columns)
+        if masking:
             with _trace.span("decode.mask", cat="decode", column=name):
                 for i, p in enumerate(pids):
+                    if isinstance(col.parts[i], Page):
+                        continue        # the unpack's gather applies the DV
                     if drop_deleted:
-                        parts[i] = pages_mod.apply_dv(
-                            parts[i], fv.deletion_vector(p),
+                        col.parts[i] = pages_mod.apply_dv(
+                            col.parts[i], fv.deletion_vector(p),
                             int(page_rows[p]))
                     else:
-                        parts[i] = _pad_raw(parts[i], fv.deletion_vector(p),
-                                            int(page_rows[p]))
-        val = parts[0] if len(parts) == 1 else _concat(parts)
-        if dequant and kinds[c] == int(ColKind.SCALAR):
-            spec = reader.quant_spec(c)
-            if use_kernel is not False and spec.mode in _KERNEL_QUANT_MODES:
-                staged.append((name, np.asarray(val), spec))
-            elif spec.mode != QuantMode.NONE:
-                with _trace.span("decode.dequantize", cat="decode",
-                                 columns=[name], route="numpy"):
-                    val = dequantize(np.asarray(val), spec)
-        out[name] = val
+                        col.parts[i] = _pad_raw(
+                            col.parts[i], fv.deletion_vector(p),
+                            int(page_rows[p]))
+                if last:
+                    route.launch(columns)
+    n_device = 0 if route is None else route.taken
+    _metrics.counter("bullion.decode.pages_device").inc(n_device)
+    _metrics.counter("bullion.decode.pages_host").inc(len(wanted) - n_device)
+    out: dict = {}
+    staged = [col.name for col in columns if col.params is not None]
+    for col, spec in zip(columns, specs):
+        if col.params is not None:
+            out[col.name] = None        # the dequant kernel's, below
+            continue
+        parts = col.parts
+        val = col.value if col.value is not None \
+            else parts[0] if len(parts) == 1 else _concat(parts)
+        if spec is not None and spec.mode != QuantMode.NONE:
+            with _trace.span("decode.dequantize", cat="decode",
+                             columns=[col.name], route="numpy"):
+                val = dequantize(np.asarray(val), spec)
+        out[col.name] = val
     if staged:
-        with _trace.span("decode.dequantize", cat="decode",
-                         columns=[name for name, *_ in staged],
+        with _trace.span("decode.dequantize", cat="decode", columns=staged,
                          route="kernel"):
-            out.update(_dequantize_columns(staged, device))
+            out.update(zip(staged, route.dequantize()))
     return out
 
 

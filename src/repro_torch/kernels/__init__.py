@@ -7,6 +7,10 @@
                     ``repro/kernels/dequant/kernel.py`` ``dequant_pallas``)
   filter          — conjunctive range filter for predicate pushdown
                     (``csrc/filter.cu``; replaces ``range_mask_pallas``)
+  page_unpack     — the read path's decode of bit-packed pages
+                    (``fixed_bit_width``, ``dictionary``) with deletion
+                    vectors applied (``csrc/page_unpack.cu``; replaces no
+                    TPU kernel: the reference decodes pages in NumPy)
   flash_attention — blocked online-softmax attention for prefill
                     (``csrc/flash_attention.cu``; replaces
                     ``flash_attention_pallas``)
@@ -17,4 +21,4 @@ version (``ref.py``). ``_build`` compiles the sources with ``nvcc`` at first
 use; nothing here builds or touches CUDA on import.
 """
 
-__all__ = ["bitunpack", "dequant", "filter", "flash_attention"]
+__all__ = ["bitunpack", "dequant", "filter", "flash_attention", "page_unpack"]

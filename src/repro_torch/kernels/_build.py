@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "filter", "dequant", "bitunpack")   # csrc/<name>.cu
+SOURCES = ("flash_attention", "filter", "dequant", "bitunpack",
+           "page_unpack")                         # csrc/<name>.cu
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,13 +16,17 @@ staging buffer (``staging.pack_columns``; page-locked for the card), then
 on ``cuda`` makes one copy to the card, one launch (``dequant_packed``,
 counted in ``dequant_packed.launches``), one copy back into page-locked
 memory and one synchronisation. On ``cpu`` the same buffer goes through the
-body's plain version, ``dequant_packed_ref``.
+body's plain version, ``dequant_packed_ref``. The read path's decode
+(``dataset/page_route.py``) lays the staging out with the same
+``staging.layout_columns`` on the card itself, where the page-unpack kernel
+writes the codes, and launches ``dequant_packed`` into a part of its own
+output buffer.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -78,16 +82,24 @@ dequant.launches = 0
 
 
 def dequant_packed(staging: torch.Tensor, n_cols: int, n_tiles: int,
-                   n_out: int) -> torch.Tensor:
+                   n_out: int, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """The column-list body: a staging buffer of ``pack_columns`` (moved to
     its device) -> float32[n_out] on that device, each column at its
-    ``out_offset``. A CUDA tensor launches the kernel, a CPU tensor takes
+    ``out_offset``: ``out`` where given (float32[n_out] there), else a new
+    tensor. A CUDA tensor launches the kernel, a CPU tensor takes
     ``dequant_packed_ref``."""
+    if out is not None and (out.shape != (n_out,) or out.dtype != torch.float32
+                            or out.device != staging.device):
+        raise ValueError(f"out {out.dtype}{list(out.shape)} on {out.device}: "
+                         f"need float32[{n_out}] on {staging.device}")
     if staging.device.type == "cpu":
-        return dequant_packed_ref(staging, n_cols, n_out)
+        ref = dequant_packed_ref(staging, n_cols, n_out)
+        return ref if out is None else out.copy_(ref)
     if staging.device.type != "cuda":
         raise ValueError(f"no dequant path for device {staging.device}")
-    out = torch.empty(n_out, dtype=torch.float32, device=staging.device)
+    if out is None:
+        out = torch.empty(n_out, dtype=torch.float32, device=staging.device)
     if n_tiles:
         dequant_packed_fwd(staging, n_cols, n_tiles, out)
         _count_launch(dequant_packed)

@@ -31,17 +31,64 @@ CODE_DTYPES = {v: k for k, v in CODE_TYPES.items()}
 
 
 @dataclasses.dataclass(frozen=True)
-class Packed:
-    buffer: torch.Tensor            # uint8 [nbytes] on the host
-    n_cols: int
+class Layout:
+    """Where each column of a launch lies: its descriptor (the buffer's
+    head), its codes in the staging buffer and its values in the output."""
+
+    desc: np.ndarray                # DESC_DTYPE [n_cols]
+    nbytes: int                     # of the staging buffer
     n_tiles: int
     n_out: int                      # float32 elements of the output
-    out_offsets: tuple[int, ...]
-    rows: tuple[int, ...]
+
+    @property
+    def n_cols(self) -> int:
+        return len(self.desc)
+
+    @property
+    def code_offsets(self) -> tuple[int, ...]:
+        return tuple(int(o) for o in self.desc["code_offset"])
+
+    @property
+    def out_offsets(self) -> tuple[int, ...]:
+        return tuple(int(o) for o in self.desc["out_offset"])
+
+    @property
+    def rows(self) -> tuple[int, ...]:
+        return tuple(int(r) for r in self.desc["rows"])
+
+
+@dataclasses.dataclass(frozen=True)
+class Packed(Layout):
+    buffer: torch.Tensor = None     # uint8 [nbytes] on the host
 
 
 def _align(n: int, to: int = ALIGN) -> int:
     return -(-n // to) * to
+
+
+def layout_columns(columns: Sequence[tuple[int, np.dtype]],
+                   params: Sequence[tuple[float, float]]) -> Layout:
+    """The layout of 1-D code columns given as ``(rows, dtype)`` (int8,
+    uint8, int16, or uint16 bf16 bits), with their float64 ``(scale,
+    zero)``."""
+    if len(columns) != len(params):
+        raise ValueError(f"{len(columns)} columns, {len(params)} (scale, "
+                         "zero)")
+    desc = np.zeros(len(columns), DESC_DTYPE)
+    pos, out, tile = _align(desc.nbytes), 0, 0
+    for d, (rows, dtype), (scale, zero) in zip(desc, columns, params):
+        dtype = np.dtype(dtype)
+        if dtype not in CODE_TYPES:
+            raise ValueError(f"codes {dtype}: need int8, uint8, int16 or "
+                             "uint16")
+        nbytes = rows * dtype.itemsize
+        d["code_offset"], d["out_offset"], d["rows"] = pos, out, rows
+        d["tile_start"], d["scale"], d["zero"] = tile, scale, zero
+        d["q_type"] = CODE_TYPES[dtype]
+        pos = _align(pos + nbytes)
+        out += _align(rows, ALIGN // 4)
+        tile += -(-nbytes // TILE_BYTES)
+    return Layout(desc, pos, tile, out)
 
 
 def pack_columns(codes: Sequence, params: Sequence[tuple[float, float]], *,
@@ -51,29 +98,17 @@ def pack_columns(codes: Sequence, params: Sequence[tuple[float, float]], *,
     page-locked when ``pin``. Gaps left by the alignment are not written."""
     arrays = [c.numpy() if isinstance(c, torch.Tensor) else np.asarray(c)
               for c in codes]
-    if len(arrays) != len(params):
-        raise ValueError(f"{len(arrays)} columns, {len(params)} (scale, zero)")
-    desc = np.zeros(len(arrays), DESC_DTYPE)
-    pos, out, tile = _align(desc.nbytes), 0, 0
-    for d, a, (scale, zero) in zip(desc, arrays, params):
-        if a.ndim != 1 or a.dtype not in CODE_TYPES:
-            raise ValueError(f"codes {a.dtype}{list(a.shape)}: need 1-D "
-                             "int8, uint8, int16 or uint16")
-        d["code_offset"], d["out_offset"], d["rows"] = pos, out, a.size
-        d["tile_start"], d["scale"], d["zero"] = tile, scale, zero
-        d["q_type"] = CODE_TYPES[a.dtype]
-        pos = _align(pos + a.nbytes)
-        out += _align(a.size, ALIGN // 4)
-        tile += -(-a.nbytes // TILE_BYTES)
-    buffer = torch.empty(pos, dtype=torch.uint8, pin_memory=pin)
+    for a in arrays:
+        if a.ndim != 1:
+            raise ValueError(f"codes {a.dtype}{list(a.shape)}: need 1-D")
+    layout = layout_columns([(a.size, a.dtype) for a in arrays], params)
+    buffer = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pin)
     host = buffer.numpy()
-    host[:desc.nbytes] = desc.view(np.uint8)
-    for d, a in zip(desc, arrays):
-        off = int(d["code_offset"])
+    host[:layout.desc.nbytes] = layout.desc.view(np.uint8)
+    for off, a in zip(layout.code_offsets, arrays):
         np.copyto(host[off:off + a.nbytes].view(a.dtype), a)
-    return Packed(buffer, len(arrays), tile, out,
-                  tuple(int(o) for o in desc["out_offset"]),
-                  tuple(int(r) for r in desc["rows"]))
+    return Packed(**{f.name: getattr(layout, f.name)
+                     for f in dataclasses.fields(Layout)}, buffer=buffer)
 
 
 def descriptors(staging: torch.Tensor, n_cols: int) -> np.ndarray:

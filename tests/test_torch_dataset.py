@@ -254,18 +254,23 @@ def test_quantized_rows_deleted_by_the_reference(files, use_kernel,
 @pytest.mark.parametrize("use_kernel", KERNEL_ROUTES)
 def test_dequantize_route_by_mode(files, monkeypatch, use_kernel):
     """Only BF16 and the affine modes reach the dequant kernel: one
-    ``dequant_columns`` call for each ``decode_group`` call that has such a
-    column (float64 scale and zero, on the plan's device); FP8 and FP16
-    never do, and ``use_kernel=False`` sends none."""
+    ``dequant_packed`` call (the column-list body, on the staging buffer
+    the page-unpack kernel filled) for each ``decode_group``
+    call that has such a column (float64 scale and zero, on the plan's
+    device); FP8 and FP16 never do, and ``use_kernel=False`` sends none."""
+    from repro_torch.kernels.dequant.staging import CODE_DTYPES, descriptors
     dq = importlib.import_module("repro_torch.kernels.dequant")
-    real, seen = dq.dequant_columns, []
+    real, seen = dq.dequant_packed, []
 
-    def spy(codes, params, *, device=None):
-        seen.append(([c.dtype for c in codes], [len(c) for c in codes],
-                     [type(v) for p in params for v in p], str(device)))
-        return real(codes, params, device=device)
+    def spy(staging, n_cols, n_tiles, n_out, out=None):
+        desc = descriptors(staging, n_cols)
+        seen.append(([CODE_DTYPES[int(q)] for q in desc["q_type"]],
+                     [int(r) for r in desc["rows"]],
+                     {desc[f].dtype for f in ("scale", "zero")},
+                     str(staging.device)))
+        return real(staging, n_cols, n_tiles, n_out, out)
 
-    monkeypatch.setattr(dq, "dequant_columns", spy)
+    monkeypatch.setattr(dq, "dequant_packed", spy)
     ds = dataset(files["quant"], device="cpu").select(QUANT_COLS) \
         .where(_pred(scan, "quant"))._with_kernel(use_kernel)
     ds.to_table()
@@ -277,7 +282,7 @@ def test_dequantize_route_by_mode(files, monkeypatch, use_kernel):
     # q_bf16 in the order selected
     want = [[np.int16, np.int8], [np.uint8, np.uint16]] * groups
     assert [dtypes for dtypes, *_ in seen] == want
-    assert all(lengths == [1024, 1024] and set(kinds) == {float}
+    assert all(lengths == [1024, 1024] and kinds == {np.dtype(np.float64)}
                and dev == "cpu" for _, lengths, kinds, dev in seen)
 
 

@@ -389,3 +389,26 @@ def test_columns_do_not_alias_a_reused_buffer():
     kept = [_bits(c).copy() for c in first]
     dequant_columns([c[::-1].copy() for c in codes], params, device="cpu")
     assert all(np.array_equal(_bits(a), b) for a, b in zip(first, kept))
+
+
+@pytest.mark.parametrize("given", ["part_of_a_buffer", "wrong_dtype",
+                                   "wrong_size"])
+def test_packed_writes_into_a_given_output(given):
+    """``dequant_packed`` writes into the ``out`` it is given (a part of a
+    larger buffer, as the read path's decode hands it) the bits it returns
+    without one, and refuses an output of another dtype or size."""
+    codes, specs = _mixed_group(7, 4)
+    packed = pack_columns(codes, [(sp.scale, sp.zero) for sp in specs])
+    args = (packed.buffer, packed.n_cols, packed.n_tiles, packed.n_out)
+    want = dequant_packed(*args)
+    if given == "part_of_a_buffer":
+        buf = torch.full((4 * packed.n_out + 256,), 0xAB, dtype=torch.uint8)
+        out = buf[256:].view(torch.float32)
+        assert dequant_packed(*args, out=out) is out
+        assert np.array_equal(_bits(out), _bits(want))
+        assert bool((buf[:256] == 0xAB).all())
+        return
+    out = torch.empty(packed.n_out, dtype=torch.float64) \
+        if given == "wrong_dtype" else torch.empty(packed.n_out + 4)
+    with pytest.raises(ValueError, match="need float32"):
+        dequant_packed(*args, out=out)

@@ -952,3 +952,97 @@ def test_train_device_spans_cover_a_synchronised_step(cuda):
         assert sorted(dev) == ["train.backward", "train.forward",
                                "train.optimizer"]
         assert abs(sum(dev.values()) - host_s) <= 0.1 * host_s, (dev, host_s)
+
+
+# ---------------------------------------------------------------------------
+# Page decode on the card: the page-unpack kernel
+# ---------------------------------------------------------------------------
+
+
+def _unpack_cases(rng):
+    """Pages of every width and value size, with and without deleted rows and
+    dictionaries, each at an offset that leaves a head and a tail."""
+    from repro_torch.core.encodings.numeric import pack_bits
+    from repro_torch.kernels.page_unpack import Page
+    pages, at = [], 0
+    for width in (0, 1, 3, 7, 8, 13, 26, 31, 32, 33, 57, 63, 64):
+        for size in (1, 2, 4, 8):
+            n = int(rng.integers(1, 70_000))
+            codes = rng.integers(0, 2**64, n, dtype=np.uint64) \
+                >> np.uint64(64 - width) if width else np.zeros(n, np.uint64)
+            deleted = np.flatnonzero(rng.random(n) < 0.3) \
+                if rng.random() < 0.5 else None
+            entries = None
+            if width and width <= 12 and rng.random() < 0.5:
+                entries = rng.integers(0, 2**(8 * size), (2**width) // 2 + 1,
+                                       dtype=np.uint64).astype(f"u{size}")
+            rows = n if deleted is None else n - len(deleted)
+            at = -(-at // 16) * 16 + size * int(rng.integers(0, 16 // size))
+            pages.append(Page(pack_bits(codes, width), width, rows, size,
+                              entries, deleted, at))
+            at += rows * size
+    return pages, at
+
+
+def test_page_unpack_bit_identical(cuda):
+    """The kernel against its plain version on the card, one launch for
+    every page."""
+    from repro_torch.kernels.page_unpack import (pack_pages, page_unpack,
+                                                 page_unpack_ref)
+    pages, n_out = _unpack_cases(np.random.default_rng(31))
+    staging, layout = pack_pages(pages)
+    staging = staging.to(cuda)
+    out = torch.zeros(n_out + 16, dtype=torch.uint8, device=cuda)
+    want = torch.zeros_like(out)
+    before = page_unpack.launches
+    page_unpack(staging, layout, out)
+    torch.cuda.synchronize()
+    assert page_unpack.launches == before + 1
+    page_unpack_ref(staging, layout.n_pages, want)
+    assert torch.equal(out, want)
+
+
+def test_page_decode_on_cuda_matches_numpy(cuda, tmp_path, monkeypatch):
+    """A table of the benchmark's Criteo shape at 2**19 rows (one row
+    group), a 0.5% share of its users deleted at LEVEL2: every column on
+    ``cuda``, dequantized BF16 features among them, bit for bit the NumPy
+    route's on the CPU; one unpack launch and one dequant launch for each
+    ``decode_group`` call, a page of each taking the device route."""
+    from test_torch_page_decode import COLUMNS, write_criteo_like
+
+    from repro_torch.dataset import executor
+    from repro_torch.kernels.page_unpack import page_unpack
+    from repro_torch.obs import metrics
+    path = str(tmp_path / "criteo.bln")
+    write_criteo_like(path, 2**19, 5, rows_per_group=2**19,
+                      delete_share=0.005)
+    device_pages = metrics.counter("bullion.decode.pages_device")
+    calls = []
+    real = executor.decode_group
+
+    def counted(*a, **kw):
+        before = (device_pages.value, page_unpack.launches,
+                  dequant_packed.launches)
+        out = real(*a, **kw)
+        calls.append((device_pages.value - before[0],
+                      page_unpack.launches - before[1],
+                      dequant_packed.launches - before[2]))
+        return out
+
+    monkeypatch.setattr(executor, "decode_group", counted)
+    for where in (None, (C("I1") > 0.5) & (C("I2") > 0.5)
+                  & (C("I3") > 0.5) & (C("I4") > 0.5)):
+        calls.clear()
+        ds = dataset(path, device="cuda").select(COLUMNS)
+        ref = dataset(path, device="cpu").select(COLUMNS)
+        if where is not None:
+            ds, ref = ds.where(where), ref.where(where)
+        got = ds.dequantized(True).to_table()
+        assert len(calls) == (1 if where is None else 2)
+        assert all(routed > 0 and unpack == 1 and dq == 1
+                   for routed, unpack, dq in calls), calls
+        want = ref.dequantized(True)._with_kernel(False).to_table()
+        for name in want:
+            assert got[name].dtype == want[name].dtype
+            assert np.array_equal(got[name].view(np.uint8),
+                                  want[name].view(np.uint8)), name
