@@ -1,5 +1,12 @@
 """mixtral-8x22b [moe]: 56L, d_model=6144, 48H (GQA kv=8), expert d_ff=16384,
-vocab=32768, 8 experts top-2, sliding-window attention. [arXiv:2401.04088]"""
+vocab=32768, 8 experts top-2, sliding-window attention. [arXiv:2401.04088]
+
+``window=4096`` and the ``window:moe`` blocks match the JAX package's
+config field for field, which the parity tests hold the port to. The
+published model has no sliding window (arXiv:2401.04088 section 2 gives it
+a fully dense context; its config's ``sliding_window`` is null), and the
+benchmark's ``mixtral-8x22b-stage`` (``perfbench/configs/``) runs full
+attention, as published."""
 
 from ..models.config import ModelConfig
 

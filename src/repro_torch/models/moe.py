@@ -13,7 +13,18 @@ down-projections are summed, as the reference's ``shard_map`` path does
 (exact up to the order of the sum).
 
 The expert products are plain batched matmuls, as in the reference, which
-computes them outside any kernel too.
+computes them outside any kernel too: each expert is padded to its capacity
+``C``. A configuration whose capacity factor is at least E / k can drop no
+pair at any call (``C >= T``: top-k picks k distinct experts, so an expert
+gets at most one pair a token); off a mesh its block takes the grouped
+path instead (``dropless``, ``_grouped``): the pairs are sorted by expert
+on the device, each pair's row is gathered once, and ``torch._grouped_mm``
+runs each expert's SwiGLU on its own rows alone, with the groups' ends as
+a device tensor, in slices of at most ``GROUPED_SLICE_BYTES`` of gate
+activations. The result is the capacity path's with no pair dropped, up to
+the order of the sums. On CUDA, ``_grouped_mm`` keeps the ends on the
+device in bf16 alone (in f32 torch loops over the groups on the host, a
+synchronisation), so the path is served in bf16.
 
 On a mesh (DTensor inputs) ``moe_block`` takes the reference's sharded path
 where the model axis divides the chunks: under ``local_map`` with
@@ -37,10 +48,14 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..distributed.collectives import pmean, psum
 from ..distributed.placement import placements
+from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .base import P, mesh_axes
 
 PRODUCTION_M = 16  # model-axis size of the reference's production mesh
+# the grouped path's slice of sorted pairs: its gate (and up) activations
+# stay under this many bytes (mixtral-8x22b in bf16: 32768 pairs a slice)
+GROUPED_SLICE_BYTES = 1 << 29
 
 
 def moe_chunking(E: int, M: int = PRODUCTION_M) -> tuple[int, int]:
@@ -161,6 +176,56 @@ def capacity(cfg, n_tokens: int) -> int:
                                 * cfg.capacity_factor)))
 
 
+def dropless(cfg) -> bool:
+    """Whether the configuration can drop no pair at any call: its capacity
+    factor is at least E / k, so that ``capacity(cfg, T) >= T`` at every
+    T. Off a mesh its block takes the grouped path."""
+    return cfg.top_k * cfg.capacity_factor >= cfg.n_experts
+
+
+def _group(idx, E: int):
+    """The (token, choice) pairs [T * k] sorted by expert, token-major
+    within one: (order, ends), the pairs' flat indices in that order and
+    each expert's group's end (int32, on the device)."""
+    sorted_key, order = torch.sort(idx.reshape(-1), stable=True)
+    ends = torch.searchsorted(
+        sorted_key, torch.arange(E, device=idx.device, dtype=idx.dtype),
+        right=True, out_int32=True)
+    return order, ends
+
+
+def _grouped(xt, w, order, ends, p, k: int):
+    """The grouped experts: each sorted pair's row through its expert's
+    SwiGLU over the chunk layout (an expert's ``tp`` chunks read the same
+    rows; their partial down-projections are summed), weighted by its gate
+    and added into its token's row -> [T, d] f32."""
+    T, d = xt.shape
+    N = order.numel()
+    dtype = xt.dtype
+    E = ends.numel()
+    tp = p["wg"].shape[0] // E
+    ff_tp = p["wg"].shape[2]
+    wg, wu = (p[n].view(E, tp, d, ff_tp) for n in ("wg", "wu"))
+    wd = p["wd"].view(E, tp, ff_tp, d)
+    tok = order // k
+    gate = w.reshape(-1)[order]
+    y = torch.zeros(T, d, dtype=torch.float32, device=xt.device)
+    rows = max(1, GROUPED_SLICE_BYTES // (ff_tp * xt.element_size()))
+    for s in range(0, N, rows):
+        n = min(rows, N - s)
+        offs = (ends - s).clamp_(0, n)
+        xs = xt[tok[s:s + n]]
+        out = None
+        for j in range(tp):
+            h = torch._grouped_mm(xs, wg[:, j].to(dtype), offs=offs)
+            u = torch._grouped_mm(xs, wu[:, j].to(dtype), offs=offs)
+            part = torch._grouped_mm(F.silu(h) * u, wd[:, j].to(dtype),
+                                     offs=offs)
+            out = part if out is None else out + part
+        y.index_add_(0, tok[s:s + n], (out * gate[s:s + n, None]).float())
+    return y
+
+
 def moe_apply(p, x, cfg, *, model_axis=None, all_axes=(), mesh=None):
     """The MoE block over x [B, S, d] -> (y [B, S, d], aux loss). With a
     ``model_axis`` it runs on one rank's local shards of ``mesh`` (under
@@ -169,7 +234,9 @@ def moe_apply(p, x, cfg, *, model_axis=None, all_axes=(), mesh=None):
     and the aux loss averaged over ``all_axes``. Its four stages run in
     spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
     ``moe.combine`` (the shared experts and the sums over ranks in the
-    last)."""
+    last). Off a mesh, a configuration that can drop no pair
+    (``dropless``) takes the grouped path, every other call the capacity
+    path."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -178,6 +245,20 @@ def moe_apply(p, x, cfg, *, model_axis=None, all_axes=(), mesh=None):
 
     with _trace.span("moe.route", cat="model"):
         w, idx, aux = _route(xt, p["router"], k)
+    if model_axis is None and dropless(cfg):
+        # the grouped path: its experts' stage a device span, its calls
+        # and pairs counted
+        _metrics.counter("bullion.moe.grouped_calls").inc()
+        _metrics.counter("bullion.moe.grouped_pairs").inc(T * k)
+        with _trace.span("moe.dispatch", cat="model", path="grouped"):
+            order, ends = _group(idx, E)
+        with _trace.device_span("moe.experts", cat="model", path="grouped",
+                                tokens=T, pairs=T * k, experts=E):
+            y = _grouped(xt, w, order, ends, p, k)
+        with _trace.span("moe.combine", cat="model"):
+            y, aux = _combine(p, xt, y.to(x.dtype), aux, None, all_axes,
+                              mesh)
+        return y.reshape(B, S, d), aux
     with _trace.span("moe.dispatch", cat="model"):
         buf, slot, keep = _dispatch(xt, idx, E, C)
     with _trace.span("moe.experts", cat="model"):
@@ -196,17 +277,23 @@ def moe_apply(p, x, cfg, *, model_axis=None, all_axes=(), mesh=None):
                                torch.zeros((), dtype=x.dtype,
                                            device=x.device))
         y = (gathered.reshape(T, k, d) * w[..., None]).sum(dim=1)
-
-        if cfg.n_shared:
-            sp = p["shared"]
-            g = xt @ sp["w_gate"].to(x.dtype)
-            u = xt @ sp["w_up"].to(x.dtype)
-            y = y + (F.silu(g) * u) @ sp["w_down"].to(x.dtype)
-        if model_axis is not None:
-            y = psum(y, mesh, (model_axis,))
-        if all_axes:
-            aux = pmean(aux, mesh, all_axes)
+        y, aux = _combine(p, xt, y, aux, model_axis, all_axes, mesh)
     return y.reshape(B, S, d), aux
+
+
+def _combine(p, xt, y, aux, model_axis, all_axes, mesh):
+    """The shared experts added to the routed output y [T, d], the sum over
+    ``model_axis`` and the aux loss's mean over ``all_axes``."""
+    if "shared" in p:
+        sp = p["shared"]
+        g = xt @ sp["w_gate"].to(xt.dtype)
+        u = xt @ sp["w_up"].to(xt.dtype)
+        y = y + (F.silu(g) * u) @ sp["w_down"].to(xt.dtype)
+    if model_axis is not None:
+        y = psum(y, mesh, (model_axis,))
+    if all_axes:
+        aux = pmean(aux, mesh, all_axes)
+    return y, aux
 
 
 def moe_specs(p, cfg, mesh, batch_axes):

@@ -7,7 +7,8 @@ CPU, windowed smoke models (D = 256 and 128), MLA, RG-LRU and whisper's
 encoder-decoder (its encoder's non-causal launches) against the plain
 route, predicate and quantized reads on CUDA against the CPU, and the
 sharded training step and MoE on a (1, 1) NCCL mesh against the unsharded
-model. They skip where CUDA is absent. On an H100:
+model, and the MoE's grouped path at mixtral-8x22b's width with no host
+synchronisation. They skip where CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -882,6 +883,34 @@ def test_sharded_moe_on_one_card(nccl_mesh):
         assert flash_attention.launches == before + cfg.n_layers
     assert sharded_route(m.segments[1].b0[0].moe, m.dist)
     assert abs(losses[0] - losses[1]) < 2e-3
+
+
+@pytest.mark.parametrize("T", [32, 4096])        # a decode step, a prefill
+def test_grouped_moe_at_mixtral_width_syncs_nowhere(cuda, T, monkeypatch):
+    """One mixtral-8x22b MoE layer at full width (8 experts of 16384, top 2,
+    two chunks an expert) in bf16 at capacity factor E / k: the grouped
+    path runs with synchronisation made an error, and its output equals
+    the capacity path's to bf16's rounding."""
+    from repro_torch.models import moe
+    from repro_torch.models.base import init_tree
+    cfg = configs.get("mixtral_8x22b").scaled(capacity_factor=4.0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    p = dict(init_tree(moe.moe_decl(cfg), gen, cuda, torch.bfloat16).items())
+    x = torch.randn(1, T, cfg.d_model, device=cuda, dtype=torch.bfloat16,
+                    generator=gen)
+    assert moe.dropless(cfg)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _ = moe.moe_apply(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        monkeypatch.setattr(moe, "dropless", lambda cfg: False)
+        want, _ = moe.moe_apply(p, x, cfg)
+    gap = (y.float() - want.float()).abs().max()
+    assert gap <= TOL[torch.bfloat16] * want.float().abs().max()
 
 
 def test_decode_span_holds_its_device_ops_on_the_profilers_clock(cuda):

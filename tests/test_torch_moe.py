@@ -261,3 +261,191 @@ def test_moe_decl_matches_reference_layout():
                                   {kk: vv.shape for kk, vv in v.items()})
                               for k, v in d.items()}
             assert flat(td) == flat(jd), (arch, get)
+
+
+# ---------------------------------------------------------------------------
+# the grouped (dropless) path
+# ---------------------------------------------------------------------------
+
+
+def _mixtral_small(capacity_factor=4.0):
+    """mixtral-8x22b's block at a small size: 8 experts, top 2, no shared
+    expert, two chunks an expert (tp = 2)."""
+    return tconfigs.get_smoke("mixtral_8x22b").scaled(
+        n_experts=8, capacity_factor=capacity_factor)
+
+
+def _grouped_counts():
+    from repro_torch.obs import metrics
+    return (metrics.counter("bullion.moe.grouped_calls").value,
+            metrics.counter("bullion.moe.grouped_pairs").value)
+
+
+def _capacity_path(p, x, cfg, monkeypatch):
+    with monkeypatch.context() as m:
+        m.setattr(tmoe, "dropless", lambda cfg: False)
+        return tmoe.moe_apply(p, x, cfg)
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("B,S", [(4, 1), (3, 40)])     # decode, prefill
+def test_grouped_path_equals_capacity_path(monkeypatch, B, S, sliced):
+    """At capacity factor E / k (C = T: nothing dropped) the block takes
+    the grouped path, whose output and aux loss equal the capacity path's
+    in f32, whole or in slices of the sorted pairs; the counters count its
+    call and pairs."""
+    cfg = _mixtral_small()
+    assert tmoe.moe_chunking(cfg.n_experts) == (2, 16)
+    assert tmoe.capacity(cfg, B * S) == B * S and tmoe.dropless(cfg)
+    params = _torch(_jax_params(jconfigs.get_smoke("mixtral_8x22b").scaled(
+        n_experts=8), seed=3))
+    x = torch.randn(B, S, cfg.d_model,
+                    generator=torch.Generator().manual_seed(B * S))
+    if sliced:      # a slice of 7 pairs: groups cross slices
+        monkeypatch.setattr(tmoe, "GROUPED_SLICE_BYTES",
+                            7 * params["wg"].shape[2] * 4)
+    before = _grouped_counts()
+    y, aux = tmoe.moe_apply(params, x, cfg)
+    after = _grouped_counts()
+    assert after == (before[0] + 1, before[1] + B * S * cfg.top_k)
+    want, want_aux = _capacity_path(params, x, cfg, monkeypatch)
+    assert _grouped_counts() == after
+    assert _err(y, want) < TOL * max(1.0, float(want.abs().max()))
+    assert float(aux) == float(want_aux)
+
+
+def test_grouped_path_gradients_equal_capacity_path(monkeypatch):
+    """The grouped path's gradients of every weight and of the input equal
+    the capacity path's (training at a capacity that cannot bind)."""
+    cfg = _mixtral_small()
+    base = _torch(_jax_params(jconfigs.get_smoke("mixtral_8x22b").scaled(
+        n_experts=8), seed=4))
+    gen = torch.Generator().manual_seed(9)
+    x0 = torch.randn(2, 9, cfg.d_model, generator=gen)
+    dy = torch.randn(x0.shape, generator=gen)
+    grads = []
+    for path in ("grouped", "capacity"):
+        p = {n: t.clone().requires_grad_(True) for n, t in base.items()}
+        x = x0.clone().requires_grad_(True)
+        y, aux = tmoe.moe_apply(p, x, cfg) if path == "grouped" else \
+            _capacity_path(p, x, cfg, monkeypatch)
+        (y * dy).sum().add(aux).backward()
+        grads.append({n: t.grad for n, t in p.items()} | {"x": x.grad})
+    for name, g in grads[0].items():
+        assert _err(g, grads[1][name]) < 1e-5 * max(
+            1.0, float(grads[1][name].abs().max())), name
+
+
+class _Axis:
+    """A model axis of m ranks, seen from rank r: what ``moe_apply`` asks of
+    its mesh."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, r, m):
+        self.r, self.m = r, m
+
+    def get_local_rank(self, axis):
+        return self.r
+
+    def size(self, dim):
+        return (1, self.m)[dim]
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+def test_model_axis_keeps_capacity_path_at_e_over_k(m, monkeypatch):
+    """On a model axis of m ranks a configuration that can drop no pair
+    still takes the capacity path: each rank's contiguous slice of the
+    chunks (whole experts, or one chunk of one at m = 16), summed over the
+    ranks as ``psum`` does, gives the local grouped path's output; no
+    grouped span, and the grouped counters do not move."""
+    from repro_torch.obs import trace
+    cfg = _mixtral_small()
+    assert tmoe.dropless(cfg)
+    p = _torch(_jax_params(jconfigs.get_smoke("mixtral_8x22b").scaled(
+        n_experts=8), seed=5))
+    x = torch.randn(2, 12, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(m))
+    want, _ = tmoe.moe_apply(p, x, cfg)
+    monkeypatch.setattr(tmoe, "psum", lambda y, mesh, axes: y)
+    cpr = p["wg"].shape[0] // m
+    before = _grouped_counts()
+    total = torch.zeros_like(x)
+    with trace.collect() as tr:
+        for r in range(m):
+            lp = {n: p[n][r * cpr:(r + 1) * cpr] for n in ("wg", "wu", "wd")}
+            lp["router"] = p["router"]
+            y, _ = tmoe.moe_apply(lp, x, cfg, model_axis="model",
+                                  mesh=_Axis(r, m))
+            total += y
+    assert len([s for s in tr.spans if s.name == "moe.experts"]) == m
+    assert all("path" not in s.args for s in tr.spans)
+    assert _grouped_counts() == before
+    assert _err(total, want) < TOL * max(1.0, float(want.abs().max()))
+
+
+def test_capacity_path_where_pairs_can_drop():
+    """deepseek-moe-16b's factor of 1.25 keeps the capacity path at every
+    call, a call of one token (where no pair can drop) too: no grouped
+    ``moe.experts`` span, and the grouped counters do not move."""
+    from repro_torch.obs import trace
+    cfg = tconfigs.get_smoke("deepseek_moe_16b")
+    assert cfg.capacity_factor == 1.25
+    params = _torch(_jax_params(jconfigs.get_smoke("deepseek_moe_16b")))
+    gen = torch.Generator().manual_seed(2)
+    before = _grouped_counts()
+    with trace.collect() as tr:
+        for B, S in ((1, 1), (2, 1), (32, 1), (3, 11)):
+            tmoe.moe_apply(params, torch.randn(B, S, cfg.d_model,
+                                               generator=gen), cfg)
+    assert not tmoe.dropless(cfg) and tmoe.capacity(cfg, 1) >= 1
+    experts = [s for s in tr.spans if s.name == "moe.experts"]
+    assert len(experts) == 4
+    assert all("path" not in s.args for s in tr.spans)
+    assert _grouped_counts() == before
+
+
+def test_served_through_the_grouped_path_agrees_with_blocked_reference():
+    """``ServeEngine``'s prefill and then decode through the grouped path,
+    at a mixtral-shaped small size (GQA 4:2, 8 experts, top 2, no shared
+    expert, two chunks an expert) with the benchmark's seeded weights, in
+    f32: each step's logits agree with the blocked plain reference
+    (``perfbench/reference/moe_lm_blocked.py``), and the served tokens are
+    their argmax."""
+    import json
+    from pathlib import Path
+    from perfbench.lib import stage_models
+    from perfbench.reference.moe_lm_blocked import Reference
+    from repro_torch.serve import ServeEngine
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "perfbench/configs/mixtral-8x22b-stage.json")
+                     .read_text())
+    cfg.update(vocab_size=256, hidden_size=64, intermediate_size=128,
+               moe_intermediate_size=32, num_hidden_layers=3,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+               compute_dtype="float32", torch_dtype="float32")
+    seed, B, P, n = 2**31 + 77, 3, 12, 5
+    model = stage_models.build(cfg, seed, "cpu", torch.float32)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg["vocab_size"], (B, P)).astype(np.int32)
+    before = _grouped_counts()
+    tokens = ServeEngine(model, max_seq=P + n, device="cpu") \
+        .generate(prompts, n)["tokens"]
+    assert _grouped_counts()[0] == before[0] + 3 * (n + 1)
+    with torch.inference_mode():
+        cache = model.init_cache(B, P + n, dtype=torch.float32)
+        logits, cache = model.prefill(
+            {"tokens": torch.tensor(prompts, dtype=torch.long)}, cache)
+        got = [logits]
+        for i in range(n - 1):
+            logits, cache = model.decode_step(
+                cache, torch.tensor(tokens[:, i:i + 1], dtype=torch.long))
+            got.append(logits)
+    got = torch.stack(got, dim=1)                          # [B, n, V]
+    seq = torch.tensor(np.concatenate([prompts, tokens[:, :-1]], axis=1),
+                       dtype=torch.long)
+    with torch.no_grad():
+        want = Reference(cfg, seed, "cpu", torch.float32) \
+            .served_logits(seq, P)
+    assert got.shape == want.shape == (B, n, cfg["vocab_size"])
+    assert _err(got, want) < 1e-4 * max(1.0, float(want.abs().max()))
+    assert np.array_equal(got.argmax(-1).numpy(), tokens)
