@@ -3772,6 +3772,9 @@ def _sharded_pair(cfg, seed, mesh, B, P, steps, dtype) -> dict:
             l1, c1 = m1.decode_step(c1, tok)
             gaps.append(_bound(l0, _whole(l1)))
         check(bool(torch.isfinite(l0).all()), f"{cfg.name}: logits")
+        if "pos_dev" in c0:     # the unsharded step's position on the card
+            check(int(c0.pop("pos_dev")) == c0["pos"],
+                  f"{cfg.name}: the device position")
         cache = _cache_gaps(c0, c1)
     del m0, m1, c0, c1
     torch.cuda.empty_cache()

@@ -3,7 +3,7 @@
 A cache keeps each block's tensors stacked over the segment's layers,
 ``[L, ...]`` (``transformer.init_cache``, ``encdec.encdec_cache``). A layer
 reads its slice ``t[i]`` (``LayerCache``) and writes through ``put``,
-in place.
+in place, or through ``put_slot`` at a slot held on the device.
 
 Sharded serving holds the stacked tensors as DTensors, placed by
 ``launch.dryrun.cache_specs`` (batch over the batch axes, or the
@@ -49,6 +49,17 @@ def put(cache, name: str, value, index: tuple = ()) -> None:
         _local_put(t, index, value)
     else:
         t[index] = value
+
+
+def put_slot(cache, name: str, value: torch.Tensor,
+             slot: torch.Tensor) -> None:
+    """``cache[name][:, slot] = value[:, 0]`` in place, in the cache's dtype,
+    at a slot held on the device (a 0-d tensor): ``index_copy_`` along the
+    slot dim, so that the write is the same op at every slot. ``value`` [B,
+    1, ...]; plain tensors only (a sharded cache writes through ``put``)."""
+    t = cache.stacked[name][cache.layer] if isinstance(cache, LayerCache) \
+        else cache[name]
+    t.index_copy_(1, slot.view(1), value.to(t.dtype))
 
 
 def _ranges(index: tuple, shape) -> list:

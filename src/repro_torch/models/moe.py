@@ -183,6 +183,14 @@ def dropless(cfg) -> bool:
     return cfg.top_k * cfg.capacity_factor >= cfg.n_experts
 
 
+def syncs(cfg) -> bool:
+    """Whether a call of the block off a mesh reads a device value on the
+    host: the grouped path (``dropless``) in another type than bf16, where
+    ``_grouped_mm`` loops over the groups on the host. A CUDA graph cannot
+    hold such a call."""
+    return dropless(cfg) and cfg.compute_dtype != "bfloat16"
+
+
 def _group(idx, E: int):
     """The (token, choice) pairs [T * k] sorted by expert, token-major
     within one: (order, ends), the pairs' flat indices in that order and

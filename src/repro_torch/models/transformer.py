@@ -16,7 +16,11 @@ windowed ``window``/``local`` attention, with ``swiglu``, ``gelu`` or
 (``models/rwkv6.py``, self-contained, mlp kind ``none``); in ``prefill``,
 ``decode`` and ``train`` modes. A windowed block's cache is a rolling buffer
 of ``min(window, seq_len)`` slots: slot ``pos % S`` holds position ``pos``
-(``_rolling_pos``). Prefill and training attention run the flash-attention
+(``_rolling_pos``). A decode step reads its position from ``Ctx.pos_dev``
+where the cache keeps one on the device (``zoo.Model.static_decode``):
+then RoPE, the cache write (``put_slot``) and the valid slots all come
+from that tensor, and a step launches the same ops at every position.
+Prefill and training attention run the flash-attention
 kernel with the block's window (training through its autograd Function,
 with a plain backward); decode attention (one query over the cache, with
 ``kv_valid``) stays plain PyTorch, as the reference leaves it to XLA
@@ -54,7 +58,7 @@ from . import rwkv6 as rwkv_mod
 from ..distributed.placement import grad_placements, placements
 from ..obs import trace as _trace
 from .base import P, constrain
-from .cache import LayerCache, put
+from .cache import LayerCache, put, put_slot
 from .config import ModelConfig
 from .layers import (_mm, attention_decl, attn_out, attn_qkv, dot_attention,
                      gelu_mlp, gelu_mlp_decl, layernorm, layernorm_decl,
@@ -213,11 +217,13 @@ class Ctx:
     positions: Optional[torch.Tensor] = None    # [T]; decode: [cache_pos]
     cache_pos: int = 0                          # decode: position of the token
     dist: object = None                         # distributed.Dist, or None
+    pos_dev: Optional[torch.Tensor] = None      # decode: 0-d, on the device
 
 
-def _rolling_pos(pos: int, W: int, device=None) -> torch.Tensor:
+def _rolling_pos(pos, W: int, device=None) -> torch.Tensor:
     """Absolute position held by each slot of a rolling buffer of W slots
-    after position ``pos`` was written (negative: never written)."""
+    after position ``pos`` (an int or a 0-d tensor) was written (negative:
+    never written)."""
     slots = torch.arange(W, device=device)
     return pos - torch.remainder(pos - slots, W)
 
@@ -235,11 +241,18 @@ def attn_sublayer(p, x, kind: str, ctx: Ctx, cache):
                        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                        head_dim=cfg.head_dim)
     if ctx.mode == "decode":
-        pos = ctx.cache_pos
         S = cache["k"].shape[1]
-        slot = pos % S if windowed else pos
-        put(cache, "k", k[:, 0], (slice(None), slot))
-        put(cache, "v", v[:, 0], (slice(None), slot))
+        if ctx.pos_dev is not None:
+            # the position on the device: the same ops at every position
+            pos = ctx.pos_dev
+            slot = torch.remainder(pos, S) if windowed else pos
+            put_slot(cache, "k", k, slot)
+            put_slot(cache, "v", v, slot)
+        else:
+            pos = ctx.cache_pos
+            slot = pos % S if windowed else pos
+            put(cache, "k", k[:, 0], (slice(None), slot))
+            put(cache, "v", v[:, 0], (slice(None), slot))
         if windowed:
             kv_pos = _rolling_pos(pos, S, x.device)
             kv_valid = kv_pos >= 0

@@ -32,6 +32,7 @@ from .. import resolve_device
 from ..distributed.placement import placements
 from ..distributed.sharding import sharded_ops
 from . import encdec as encdec_mod
+from . import moe as moe_mod
 from . import transformer as tf
 from .base import (ParamTree, ShardingRules, abstract_tree, init_tree,
                    param_count, spec_tree)
@@ -185,13 +186,42 @@ class Model(ParamTree):
         return self.dist.rules if self.dist is not None else None
 
     # -- serving ----------------------------------------------------------------
+    @property
+    def static_decode(self) -> bool:
+        """Whether a decode step can read its position from the device, and
+        so launch the same ops at every position: off a mesh, a decoder
+        whose every block is full/global/window/local attention with a
+        swiglu/gelu/moe MLP. The others (MLA, RWKV, RG-LRU, the
+        encoder-decoder, a sharded model) read it from the host."""
+        if self.dist is not None or self.is_encdec:
+            return False
+        return all(b.split(":")[0] in tf.ATTN_KINDS
+                   and b.split(":")[1] in tf.MLP_KINDS
+                   for blocks, _ in self.cfg.segments for b in blocks)
+
+    @property
+    def capturable_decode(self) -> bool:
+        """Whether a decode step can be captured as a CUDA graph and
+        replayed: it reads its position from the device (``static_decode``)
+        and no block of it synchronises with the host (a MoE block where
+        ``moe.syncs``)."""
+        has_moe = any(b.endswith(":moe")
+                      for blocks, _ in self.cfg.segments for b in blocks)
+        return self.static_decode and not (has_moe and moe_mod.syncs(self.cfg))
+
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16) -> dict:
         """Zeros (``transformer.init_cache``, ``encdec.encdec_cache``) on
-        the model's device; with a ``dist``, each tensor a DTensor placed
-        by ``launch.dryrun.cache_specs`` (its shards made on each rank)."""
+        the model's device, and, where ``static_decode``, the position
+        ``pos_dev`` (0-d int64) on it beside the host's ``pos``; with a
+        ``dist``, each tensor a DTensor placed by ``launch.dryrun.cache_specs``
+        (its shards made on each rank)."""
         make = encdec_mod.encdec_cache if self.is_encdec else tf.init_cache
         if self.dist is None:
-            return make(self.cfg, batch, seq_len, dtype, device=self.device)
+            cache = make(self.cfg, batch, seq_len, dtype, device=self.device)
+            if self.static_decode:
+                cache["pos_dev"] = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
+            return cache
         from ..launch.dryrun import cache_specs   # it imports this module
         shapes = make(self.cfg, batch, seq_len, dtype, device="meta")
         mesh = self.dist.mesh
@@ -210,7 +240,8 @@ class Model(ParamTree):
 
         return place(shapes, cache_specs(shapes, self.cfg, self.dist))
 
-    def _capacity(self, cache: dict):
+    def capacity(self, cache: dict):
+        """Positions ``cache`` can hold; None where it never fills."""
         if self.is_encdec:
             return cache["self_kv"]["k"].shape[2]
         return tf.cache_capacity(self.cfg, cache)
@@ -226,7 +257,7 @@ class Model(ParamTree):
         frames of another length, as the reference's replacement does."""
         tokens = batch["tokens"]
         T = tokens.shape[1]
-        cap = self._capacity(cache)
+        cap = self.capacity(cache)
         if cap is not None and T > cap:
             raise ValueError(f"prompt of {T} tokens exceeds the cache "
                              f"({cap} positions)")
@@ -250,6 +281,8 @@ class Model(ParamTree):
             else:
                 x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
             cache["pos"] = T
+            if "pos_dev" in cache:
+                cache["pos_dev"].fill_(T)
             return tf.logits_fn(self, x[:, -1], self.cfg), cache
 
     def _placed(self, name: str, t):
@@ -268,12 +301,25 @@ class Model(ParamTree):
         caches are full; a model whose attention is all windowed decodes
         without end."""
         pos = cache["pos"]
-        cap = self._capacity(cache)
+        cap = self.capacity(cache)
         if cap is not None and pos >= cap:
             raise ValueError(f"cache full at position {pos}")
+        logits = self.decode_body(cache, tokens)
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    def decode_body(self, cache: dict, tokens) -> torch.Tensor:
+        """The device's part of ``decode_step``: the logits [B, V] of
+        tokens [B, 1], the cache extended in place; the host's ``pos`` is
+        neither checked nor advanced. Where the cache keeps ``pos_dev``
+        the step reads its position there and advances it, so that every
+        step launches the same ops (``serve.ServeEngine`` replays one
+        captured step); elsewhere it reads ``pos``."""
+        pos, pos_dev = cache["pos"], cache.get("pos_dev")
+        positions = pos_dev.view(1) if pos_dev is not None else \
+            torch.arange(pos, pos + 1, device=tokens.device)
         ctx = tf.Ctx(cfg=self.cfg, mode="decode", cache_pos=pos,
-                     dist=self.dist,
-                     positions=torch.arange(pos, pos + 1, device=tokens.device))
+                     dist=self.dist, positions=positions, pos_dev=pos_dev)
         with self.sharded_ops():
             x = tf.embed_tokens(self, tokens, self.cfg, self._dtype(),
                                 self._rules())
@@ -283,8 +329,10 @@ class Model(ParamTree):
                                              cache=cache["self_kv"])
             else:
                 x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
-            cache["pos"] = pos + 1
-            return tf.logits_fn(self, x[:, 0], self.cfg), cache
+            logits = tf.logits_fn(self, x[:, 0], self.cfg)
+        if pos_dev is not None:
+            pos_dev.add_(1)
+        return logits
 
 
 def build(cfg: ModelConfig, device=None, dtype=None, seed: int = 0,

@@ -21,7 +21,9 @@ contract the hot paths rely on:
   around its block on the current stream (where CUDA is initialised) and
   resolves them into ``args["device_s"]`` when its ``collect()`` scope
   closes or its tracer is aggregated or exported; on the CPU, where work
-  is synchronous, ``device_s`` is the span's own duration.
+  is synchronous, ``device_s`` is the span's own duration; on a stream
+  being captured into a CUDA graph it records no event and no
+  ``device_s``.
 * **enabled is thread-safe** — finished spans append to the tracer's list
   under a lock; spans started on scheduler/loader/pool threads record on
   whatever thread finishes them (the span holds its own tracer reference,
@@ -208,7 +210,9 @@ class DeviceSpan(Span):
     a pair of CUDA events on the current stream, resolved into
     ``args["device_s"]`` later (``Tracer.resolve``), so that closing the
     span never waits for the device. Without CUDA initialised the work ran
-    on the host, synchronously: ``device_s`` is the span's ``dur``."""
+    on the host, synchronously: ``device_s`` is the span's ``dur``. On a
+    stream that is being captured into a CUDA graph, where the work is
+    recorded and not run, it is a host span alone, with no ``device_s``."""
 
     __slots__ = ("_events",)
 
@@ -216,12 +220,17 @@ class DeviceSpan(Span):
         self._events = None
         torch = sys.modules.get("torch")
         if torch is not None and torch.cuda.is_initialized():
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            self._events = (start, torch.cuda.Event(enable_timing=True))
+            if torch.cuda.is_current_stream_capturing():
+                self._events = ()
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self._events = (start, torch.cuda.Event(enable_timing=True))
         return super().__enter__()
 
     def __exit__(self, *exc) -> bool:
+        if self._events == ():
+            return super().__exit__(*exc)
         if self._events is None:
             rec = self._finish()
             rec.args["device_s"] = rec.dur

@@ -7,8 +7,9 @@ CPU, windowed smoke models (D = 256 and 128), MLA, RG-LRU and whisper's
 encoder-decoder (its encoder's non-causal launches) against the plain
 route, predicate and quantized reads on CUDA against the CPU, and the
 sharded training step and MoE on a (1, 1) NCCL mesh against the unsharded
-model, and the MoE's grouped path at mixtral-8x22b's width with no host
-synchronisation. They skip where CUDA is absent. On an H100:
+model, the MoE's grouped path at mixtral-8x22b's width with no host
+synchronisation, and decode replayed from a CUDA graph against eager
+decode. They skip where CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -913,13 +914,147 @@ def test_grouped_moe_at_mixtral_width_syncs_nowhere(cuda, T, monkeypatch):
     assert gap <= TOL[torch.bfloat16] * want.float().abs().max()
 
 
+# ---------------------------------------------------------------------------
+# Decode replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+# bf16 smoke models that take the graph: the MoE capacity path, the
+# dropless grouped path (capacity factor E / k, two chunks an expert), and
+# local and global layers decoded past their window of 8
+GRAPH_CASES = {
+    "moe_capacity": ("deepseek_moe_16b", {}),
+    "moe_grouped": ("mixtral_8x22b", {"n_experts": 8, "capacity_factor": 4.0}),
+    "window": ("gemma3_12b", {}),
+}
+
+
+def _graph_model(cuda, case, dtype="bfloat16"):
+    arch, scaled = GRAPH_CASES[case]
+    cfg = configs.get_smoke(arch).scaled(compute_dtype=dtype, **scaled)
+    return build(cfg, device=cuda, dtype=getattr(torch, dtype))
+
+
+def _eager_generate(model, prompts, n, max_seq):
+    """``ServeEngine``'s greedy loop through ``decode_step``, eager, on a
+    new cache: (tokens [B, n], the last step's logits)."""
+    with torch.inference_mode():
+        cache = model.init_cache(len(prompts), max_seq, dtype=torch.float32)
+        logits, cache = model.prefill({"tokens": torch.as_tensor(
+            prompts.astype(np.int64), device=model.device)}, cache)
+        tok, out = logits.argmax(-1)[:, None], []
+        for _ in range(n):
+            out.append(tok)
+            logits, cache = model.decode_step(cache, tok)
+            tok = logits.argmax(-1)[:, None]
+    return torch.cat(out, dim=1).cpu().numpy(), logits
+
+
+def _decode_counts():
+    from repro_torch.obs import metrics
+    return tuple(metrics.counter(f"bullion.serve.decode_{n}").value
+                 for n in ("graph_captures", "graph_replays", "eager_steps"))
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_replay_equals_eager_decode(cuda, case):
+    """Two ``generate`` calls on one engine (the first captures, the second
+    replays whole; other prompts, shorter) equal the eager decode bit for
+    bit: the tokens and the last step's logits."""
+    from repro_torch.serve import ServeEngine
+    model = _graph_model(cuda, case)
+    rng = np.random.default_rng(11)
+    engine = ServeEngine(model, max_seq=32, device=cuda)
+    for P, n in ((12, 14), (5, 16)):
+        prompts = rng.integers(0, model.cfg.vocab, (4, P)).astype(np.int32)
+        tokens = engine.generate(prompts, n)["tokens"]
+        want, logits = _eager_generate(model, prompts, n, 32)
+        kept = engine._kept
+        assert kept.graph is not None
+        assert np.array_equal(tokens, want), (P, n)
+        assert torch.equal(kept.logits, logits), (P, n)
+
+
+def test_graph_counters_and_a_second_batch_size(cuda):
+    """A second batch size captures a second graph, in place of the first,
+    and the first size, come back, a third. The counters: three captures,
+    every step but each capture's warm-up replayed, none eager; a dropless
+    MoE computing in float32 (whose grouped path synchronises) decodes
+    eagerly, its steps counted as such."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.lm import WARMUP_STEPS
+    model = _graph_model(cuda, "moe_capacity")
+    engine = ServeEngine(model, max_seq=24, device=cuda)
+    rng = np.random.default_rng(12)
+    before = _decode_counts()
+    graphs = []
+    for B, n in ((4, 6), (4, 6), (2, 7), (4, 5)):
+        prompts = rng.integers(0, model.cfg.vocab, (B, 8)).astype(np.int32)
+        engine.generate(prompts, n)
+        assert engine._kept.B == B
+        graphs.append(engine._kept.graph)
+    after = _decode_counts()
+    assert graphs[0] is graphs[1] and len({id(g) for g in graphs}) == 3
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) \
+        == (3, 6 + 6 + 7 + 5 - 3 * WARMUP_STEPS, 0)
+    f32 = _graph_model(cuda, "moe_grouped", dtype="float32")
+    engine = ServeEngine(f32, max_seq=24, device=cuda)
+    engine.generate(rng.integers(0, f32.cfg.vocab, (2, 8)).astype(np.int32),
+                    5)
+    assert _decode_counts() == (after[0], after[1], after[2] + 5)
+
+
+def test_replays_count_the_captured_steps_counters(cuda):
+    """The MoE's grouped-path counters count a replayed step as they count
+    an eager one: a call of n new tokens adds a call a MoE layer for the
+    prefill and for each step, whether it captures or replays whole."""
+    from repro_torch.obs import metrics
+    from repro_torch.serve import ServeEngine
+    model = _graph_model(cuda, "moe_grouped")
+    layers = sum(n * sum(b.endswith(":moe") for b in blocks)
+                 for blocks, n in model.cfg.segments)
+    engine = ServeEngine(model, max_seq=32, device=cuda)
+    rng = np.random.default_rng(13)
+    for P, n in ((12, 9), (6, 11)):
+        calls = metrics.counter("bullion.moe.grouped_calls").value
+        pairs = metrics.counter("bullion.moe.grouped_pairs").value
+        prompts = rng.integers(0, model.cfg.vocab, (4, P)).astype(np.int32)
+        engine.generate(prompts, n)
+        assert engine._kept.graph is not None
+        assert metrics.counter("bullion.moe.grouped_calls").value - calls \
+            == layers * (1 + n)
+        assert metrics.counter("bullion.moe.grouped_pairs").value - pairs \
+            == layers * model.cfg.top_k * 4 * (P + n)
+
+
+def test_device_span_during_capture_records_no_device_time(cuda):
+    """A device span opened while a CUDA graph is captured records no CUDA
+    event (which would break the capture) and no ``device_s``; the graph
+    replays what it holds."""
+    from repro_torch.obs import trace
+    x = torch.ones(1024, device=cuda)
+    y = x * 2
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with trace.collect() as tr:
+        with torch.cuda.graph(g):
+            with trace.device_span("moe.experts", "model", path="grouped"):
+                y = x * 2
+    (rec,) = tr.spans
+    assert rec.args == {"path": "grouped"}
+    x.fill_(3.0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 6.0))
+
+
 def test_decode_span_holds_its_device_ops_on_the_profilers_clock(cuda):
     """The tracer's spans and the profiler's device ops share one clock:
-    in a small ``generate``, every device op launched by a host op inside
-    the ``serve.decode`` span (matched by the profiler's correlation ids)
-    starts after the span does and ends before it ends, since the span
-    closes after a synchronise; and no device op straddles the span's
-    end."""
+    in a small ``generate``, whose steps replay the decode step captured
+    by the call before, every device op launched inside the
+    ``serve.decode`` span (matched to its launch, a ``cudaGraphLaunch`` or
+    ``cudaLaunchKernel``, by the runtime's correlation ids) starts after
+    the span does and ends before it ends, since the span closes after a
+    synchronise; and no device op straddles the span's end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs import trace
@@ -936,17 +1071,18 @@ def test_decode_span_holds_its_device_ops_on_the_profilers_clock(cuda):
                                 ProfilerActivity.CUDA]) as prof:
         engine.generate(prompts, steps)
     (dec,) = [s for s in tr.spans if s.name == "serve.decode"]
+    assert dec.args["graph_steps"] == steps
     a = trace.profiler_us(dec)
     b = a + dec.dur * 1e6
     events = list(prof.profiler.kineto_results.events())
     device = [e for e in events if e.device_type() == DeviceType.CUDA
               and not e.is_user_annotation()]
-    host = {e.correlation_id(): e for e in events
-            if e.device_type() == DeviceType.CPU
-            and not e.name().startswith("cu")}
+    launches = {e.correlation_id(): e for e in events
+                if e.device_type() == DeviceType.CPU
+                and e.name() in ("cudaGraphLaunch", "cudaLaunchKernel")}
     launched = [e for e in device
-                if e.linked_correlation_id() in host
-                and a <= host[e.linked_correlation_id()].start_ns() / 1e3 <= b]
+                if e.correlation_id() in launches
+                and a <= launches[e.correlation_id()].start_ns() / 1e3 <= b]
     assert len(launched) >= steps * cfg.n_layers, (len(launched), len(device))
     assert a <= min(e.start_ns() for e in launched) / 1e3
     assert max(e.end_ns() for e in launched) / 1e3 <= b

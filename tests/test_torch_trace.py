@@ -133,14 +133,20 @@ class _FakeEvent:
         return 2.5
 
 
+def _fake_torch(capturing: bool):
+    """Stands for ``torch`` with CUDA initialised, its current stream being
+    captured into a CUDA graph or not."""
+    return types.SimpleNamespace(cuda=types.SimpleNamespace(
+        is_initialized=lambda: True, Event=_FakeEvent,
+        is_current_stream_capturing=lambda: capturing))
+
+
 def test_pending_device_times_resolve_when_collect_closes(monkeypatch):
     """Where CUDA is initialised, a device span's ``device_s`` waits for
     its events until the ``collect()`` scope closes; the record forwarded
     to the enclosing tracer is the same, so it carries the time too, and
     nothing is waited for twice."""
-    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
-        is_initialized=lambda: True, Event=_FakeEvent))
-    monkeypatch.setitem(sys.modules, "torch", fake)
+    monkeypatch.setitem(sys.modules, "torch", _fake_torch(capturing=False))
     monkeypatch.setattr(_FakeEvent, "syncs", 0)
     outer = trace.enable()
     with trace.collect() as inner:
@@ -159,6 +165,23 @@ def test_pending_device_times_resolve_when_collect_closes(monkeypatch):
     agg = outer.aggregate()
     assert agg["train.forward"].args["device_s"] == 2.5e-3
     assert _FakeEvent.syncs == 2
+
+
+def test_device_span_on_a_capturing_stream_is_a_host_span(monkeypatch):
+    """While the current stream is captured into a CUDA graph, a device
+    span records no event (an event there would break the capture) and no
+    ``device_s``: it is a host span alone, and nothing waits on it."""
+    def no_event(enable_timing=False):
+        raise AssertionError("an event recorded during a capture")
+    monkeypatch.setitem(sys.modules, "torch", _fake_torch(capturing=True))
+    monkeypatch.setattr(_FakeEvent, "syncs", 0)
+    with trace.collect() as tr:
+        monkeypatch.setattr(_FakeEvent, "__init__", no_event)
+        with trace.device_span("moe.experts", "model", path="grouped"):
+            pass
+    (rec,) = tr.spans
+    assert rec.args == {"path": "grouped"} and rec.dur >= 0
+    assert _FakeEvent.syncs == 0
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +209,7 @@ def _moe_layers(cfg):
 
 def test_decode_spans():
     """``generate`` of n tokens: one ``serve.decode`` span (its steps and
-    batch), a ``layer.attn`` span a layer a call of the model (the prefill
+    batch, and on the CPU every step eager), a ``layer.attn`` span a layer a call of the model (the prefill
     and each step), a ``layer.moe`` span a MoE layer, each holding one
     span of each MoE stage; every decode-step layer inside
     ``serve.decode``."""
@@ -206,7 +229,8 @@ def test_decode_spans():
                  "moe.combine"):
         assert c[name] == moe * (n + 1), name
     (dec,) = [s for s in tr.spans if s.name == "serve.decode"]
-    assert dec.args == {"steps": n, "batch": B}
+    assert dec.args == {"steps": n, "batch": B, "graph_steps": 0,
+                        "eager_steps": n}
     inside = [s for s in tr.spans if s.name == "layer.attn"
               and dec.ts <= s.ts and s.ts + s.dur <= dec.ts + dec.dur]
     assert len(inside) == cfg.n_layers * n
