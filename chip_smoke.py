@@ -1720,8 +1720,9 @@ def _local_layer_check(cfg, seed: int, B: int, P: int, steps: int) -> None:
         errs, bounds = [], []
         for i in range(steps):
             pos = P + i
-            ctx = tf.Ctx(cfg=lcfg, mode="decode", cache_pos=pos,
-                         positions=torch.arange(pos, pos + 1, device="cuda"))
+            at = torch.tensor(pos, device="cuda")
+            ctx = tf.Ctx(cfg=lcfg, mode="decode", pos=at,
+                         positions=at.view(1))
             y_dec = tf.attn_sublayer(p, x[:, pos:pos + 1], "local", ctx,
                                      cache)
             err, bound = _bound(sublayer(pos + 1)[:, -1:], y_dec)
@@ -3772,9 +3773,8 @@ def _sharded_pair(cfg, seed, mesh, B, P, steps, dtype) -> dict:
             l1, c1 = m1.decode_step(c1, tok)
             gaps.append(_bound(l0, _whole(l1)))
         check(bool(torch.isfinite(l0).all()), f"{cfg.name}: logits")
-        if "pos_dev" in c0:     # the unsharded step's position on the card
-            check(int(c0.pop("pos_dev")) == c0["pos"],
-                  f"{cfg.name}: the device position")
+        check(int(c0.pop("pos")) == int(c1.pop("pos")) == P + steps,
+              f"{cfg.name}: the positions")
         cache = _cache_gaps(c0, c1)
     del m0, m1, c0, c1
     torch.cuda.empty_cache()

@@ -244,7 +244,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
                             model.prefill(batch, cache))
         else:
             # one step at the cache's last position (every slot counts)
-            cache["pos"] = shape.seq_len - 1
+            cache["pos"].fill_(shape.seq_len - 1)
             tok = tokens(1)
 
             def run():

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.flash_attention import attention
 from ..kernels.flash_attention.ops import local_heads
 from .base import P, constrain
-from .cache import LayerCache, put
+from .cache import LayerCache
 from .config import ModelConfig
 from .layers import (_proj, attention_decl, attn_out, attn_qkv,
                      cross_attention_decl, dot_attention, gelu_mlp,
@@ -141,12 +141,7 @@ def _dec_layer(h, p, ek, ev, ctx: Ctx, cache):
     q, k, v = attn_qkv(p["self_attn"], xn, ctx.positions,
                        rope_theta=cfg.rope_theta)
     if ctx.mode == "decode":
-        pos = ctx.cache_pos
-        put(cache, "k", k[:, 0], (slice(None), pos))
-        put(cache, "v", v[:, 0], (slice(None), pos))
-        kv_pos = torch.arange(cache["k"].shape[1], device=h.device)
-        o = decode_attention(q, cache["k"], cache["v"], ctx.positions,
-                             kv_pos, kv_pos <= pos)
+        o = decode_attention(q, k, v, cache, ctx)
     else:
         o = attention(q, k, v, causal=True)
         if cache is not None:
@@ -190,7 +185,8 @@ def decode_blocks(params, x, cfg: ModelConfig, ctx: Ctx, enc_k, enc_v,
 def encdec_cache(cfg: ModelConfig, batch: int, seq_len: int,
                  dtype=torch.bfloat16, device=None) -> dict:
     """``{"pos": 0, "self_kv": {"k", "v": [L, B, seq_len, Hkv, D]},
-    "enc_k", "enc_v": [L, B, encoder.seq, H, D]}``, zeros. A prefill
+    "enc_k", "enc_v": [L, B, encoder.seq, H, D]}``, zeros, the position a
+    0-d int64 tensor. A prefill
     fills ``enc_k``/``enc_v`` with its frames' cross K/V, and replaces
     them where the frames have another length, as the reference's does."""
     L = cfg.n_layers
@@ -199,4 +195,5 @@ def encdec_cache(cfg: ModelConfig, batch: int, seq_len: int,
     k, v, ek, ev = (torch.zeros(shape, dtype=dtype, device=device)
                     for shape in (self_shape, self_shape, enc_shape,
                                   enc_shape))
-    return {"pos": 0, "self_kv": {"k": k, "v": v}, "enc_k": ek, "enc_v": ev}
+    return {"pos": torch.zeros((), dtype=torch.int64, device=device),
+            "self_kv": {"k": k, "v": v}, "enc_k": ek, "enc_v": ev}

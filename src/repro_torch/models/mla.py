@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import attention
 from .base import P
-from .cache import put
+from .cache import put, put_slot
 from .layers import NEG_INF, _proj, attn_out, rmsnorm, rmsnorm_decl, rope
 
 
@@ -60,10 +60,10 @@ def _latent_kv(p, x, positions, cfg):
     return ckv, k_rope
 
 
-def mla_attention(p, x, positions, cfg, cache=None, cache_pos: int = 0):
+def mla_attention(p, x, positions, cfg, cache=None, cache_pos=None):
     """x [B, T, d] -> out [B, T, d]. ``cache`` ({"ckv", "kr"} of this layer)
     is filled from position 0 (prefill, T > 1) or extended at ``cache_pos``
-    (decode, T == 1), in place."""
+    (decode, T == 1: a 0-d tensor on the device), in place."""
     m = cfg.mla
     B, T, _ = x.shape
     H = cfg.n_heads
@@ -73,8 +73,8 @@ def mla_attention(p, x, positions, cfg, cache=None, cache_pos: int = 0):
 
     if cache is not None and T == 1:
         # -- absorbed decode over the compressed cache --
-        put(cache, "ckv", ckv_new[:, 0], (slice(None), cache_pos))
-        put(cache, "kr", kr_new[:, 0], (slice(None), cache_pos))
+        put_slot(cache, "ckv", ckv_new, cache_pos)
+        put_slot(cache, "kr", kr_new, cache_pos)
         ckv, kr = cache["ckv"], cache["kr"]
         S = ckv.shape[1]
         w_k = p["wkv_b"][..., :dn].to(x.dtype)              # [r, H, dn]

@@ -6,8 +6,9 @@ layers are a ``ModuleList`` walked by a Python loop. Caches keep the
 reference's stacked layout, a leading ``[layers, ...]`` axis on each of a
 block's cache tensors, and are updated in place (a decode step writes one
 slot instead of copying the cache) through ``models.cache``: a layer's
-``LayerCache`` reads its slice, ``put`` writes into the stack (into each
-rank's local shard for a sharded cache).
+``LayerCache`` reads its slice, ``put`` (prefill) and ``put_slot``
+(decode) write into the stack (into each rank's local shard for a
+sharded cache).
 
 Ported: every decoder block kind. ``full``/``global`` attention and the
 windowed ``window``/``local`` attention, with ``swiglu``, ``gelu`` or
@@ -16,16 +17,15 @@ windowed ``window``/``local`` attention, with ``swiglu``, ``gelu`` or
 (``models/rwkv6.py``, self-contained, mlp kind ``none``); in ``prefill``,
 ``decode`` and ``train`` modes. A windowed block's cache is a rolling buffer
 of ``min(window, seq_len)`` slots: slot ``pos % S`` holds position ``pos``
-(``_rolling_pos``). A decode step reads its position from ``Ctx.pos_dev``
-where the cache keeps one on the device (``zoo.Model.static_decode``):
-then RoPE, the cache write (``put_slot``) and the valid slots all come
-from that tensor, and a step launches the same ops at every position.
-Prefill and training attention run the flash-attention
-kernel with the block's window (training through its autograd Function,
-with a plain backward); decode attention (one query over the cache, with
-``kv_valid``) stays plain PyTorch, as the reference leaves it to XLA
-outside any kernel. Training rematerialises each layer, as the reference's
-``jax.checkpoint`` of its scan body does.
+(``_rolling_pos``). A decode step reads its position from the cache's 0-d
+int64 tensor on the device (``Ctx.pos``) for RoPE, the cache write and the
+valid slots, so that it launches the same ops at every position. Prefill
+and training attention run the flash-attention kernel with the block's
+window (training through its autograd Function, with a plain backward);
+decode attention (one query over the cache, with ``kv_valid``) stays plain
+PyTorch, as the reference leaves it to XLA outside any kernel. Training
+rematerialises each layer, as the reference's ``jax.checkpoint`` of its
+scan body does.
 
 Sharded (a ``Ctx.dist`` with a mesh, the parameters DTensors): the
 residual stream is held at ``("batch", "seq", None)`` before the layers
@@ -175,9 +175,9 @@ def block_cache(cfg: ModelConfig, block: str, batch: int, seq_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """``{"pos": 0, "segments": [{"b{j}": {name: tensor}}]}``, each of a
-    block's cache tensors (``block_cache``) stacked over the segment's
-    repeats: ``[repeat, ...]``."""
+    """``{"pos": 0, "segments": [{"b{j}": {name: tensor}}]}``, the position a
+    0-d int64 tensor, each of a block's cache tensors (``block_cache``)
+    stacked over the segment's repeats: ``[repeat, ...]``."""
     segs = []
     for blocks, rep in cfg.segments:
         seg = {}
@@ -186,7 +186,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             seg[f"b{j}"] = {n: t[None].repeat((rep,) + (1,) * t.dim())
                             for n, t in one.items()}
         segs.append(seg)
-    return {"pos": 0, "segments": segs}
+    return {"pos": torch.zeros((), dtype=torch.int64, device=device),
+            "segments": segs}
 
 
 def cache_capacity(cfg: ModelConfig, cache: dict) -> Optional[int]:
@@ -214,10 +215,9 @@ def cache_capacity(cfg: ModelConfig, cache: dict) -> Optional[int]:
 class Ctx:
     cfg: ModelConfig
     mode: str = "prefill"                       # prefill | decode | train
-    positions: Optional[torch.Tensor] = None    # [T]; decode: [cache_pos]
-    cache_pos: int = 0                          # decode: position of the token
+    positions: Optional[torch.Tensor] = None    # [T]; decode: [pos]
     dist: object = None                         # distributed.Dist, or None
-    pos_dev: Optional[torch.Tensor] = None      # decode: 0-d, on the device
+    pos: Optional[torch.Tensor] = None          # decode: 0-d, the token's
 
 
 def _rolling_pos(pos, W: int, device=None) -> torch.Tensor:
@@ -241,26 +241,7 @@ def attn_sublayer(p, x, kind: str, ctx: Ctx, cache):
                        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                        head_dim=cfg.head_dim)
     if ctx.mode == "decode":
-        S = cache["k"].shape[1]
-        if ctx.pos_dev is not None:
-            # the position on the device: the same ops at every position
-            pos = ctx.pos_dev
-            slot = torch.remainder(pos, S) if windowed else pos
-            put_slot(cache, "k", k, slot)
-            put_slot(cache, "v", v, slot)
-        else:
-            pos = ctx.cache_pos
-            slot = pos % S if windowed else pos
-            put(cache, "k", k[:, 0], (slice(None), slot))
-            put(cache, "v", v[:, 0], (slice(None), slot))
-        if windowed:
-            kv_pos = _rolling_pos(pos, S, x.device)
-            kv_valid = kv_pos >= 0
-        else:
-            kv_pos = torch.arange(S, device=x.device)
-            kv_valid = kv_pos <= pos
-        o = decode_attention(q, cache["k"], cache["v"], ctx.positions,
-                             kv_pos, kv_valid, window=window)
+        o = decode_attention(q, k, v, cache, ctx, window=window)
     else:
         o = attention(q, k, v, causal=True, window=window)
         if cache is not None:
@@ -285,20 +266,33 @@ def prefill_put(cache, k, v, windowed: bool = False) -> None:
             put(cache, name, 0, (slice(None), slice(T, None)))
 
 
-def decode_attention(q, ck, cv, q_pos, kv_pos, kv_valid, *, window=0):
-    """One query position over a cache: q [B, 1, H, D], ck, cv [B, S, Hkv,
-    D] (cast to q's dtype), ``kv_valid`` [S] -> [B, 1, H, D], plain
-    (``dot_attention``), as the reference leaves it outside any kernel.
-    DTensors run on each rank's batch rows and query heads, the cache's
-    sequence whole (``local_heads``)."""
+def decode_attention(q, k, v, cache, ctx: Ctx, *, window: int = 0):
+    """One decode step over a layer's cache of S slots, a rolling buffer
+    where ``window``: k, v [B, 1, Hkv, D] written in place at the slot of
+    the position ``ctx.pos`` (``pos % S`` rolling), then q [B, 1, H, D]
+    over the slots written -> [B, 1, H, D], plain (``dot_attention``, the
+    cache cast to q's dtype), as the reference leaves it outside any
+    kernel. DTensors run on each rank's batch rows and query heads, the
+    cache's sequence whole (``local_heads``)."""
+    S, pos = cache["k"].shape[1], ctx.pos
+    slot = torch.remainder(pos, S) if window else pos
+    put_slot(cache, "k", k, slot)
+    put_slot(cache, "v", v, slot)
+    if window:
+        kv_pos = _rolling_pos(pos, S, q.device)
+        kv_valid = kv_pos >= 0
+    else:
+        kv_pos = torch.arange(S, device=q.device)
+        kv_valid = kv_pos <= pos
+
     def plain(ql, kl, vl):
         valid = kv_valid[None, :].expand(ql.shape[0], kl.shape[1])
-        return dot_attention(ql, kl.to(ql.dtype), vl.to(ql.dtype), q_pos,
-                             kv_pos, causal=True, window=window,
-                             kv_valid=valid)
+        return dot_attention(ql, kl.to(ql.dtype), vl.to(ql.dtype),
+                             ctx.positions, kv_pos, causal=True,
+                             window=window, kv_valid=valid)
     if isinstance(q, DTensor):
-        return local_heads(plain, q, ck, cv)
-    return plain(q, ck, cv)
+        return local_heads(plain, q, cache["k"], cache["v"])
+    return plain(q, cache["k"], cache["v"])
 
 
 def apply_block(p, x, block: str, ctx: Ctx, cache=None):
@@ -318,7 +312,7 @@ def apply_block(p, x, block: str, ctx: Ctx, cache=None):
         if attn_kind == "mla":
             x = x + mla_mod.mla_attention(
                 p["attn"], _norm(cfg, p["ln_attn"], x), ctx.positions, cfg,
-                cache=cache, cache_pos=ctx.cache_pos)
+                cache=cache, cache_pos=ctx.pos)
         elif attn_kind == "rglru":
             x = rglru_mod.rglru_block(p["rec"], x, cache, cfg=cfg)
         else:

@@ -13,7 +13,12 @@ DTensor on the mesh, placed by ``spec_tree(decl, dist.rules, mesh)``, and
 ``sharded_ops()``. ``init_cache`` then makes each cache tensor a DTensor
 placed by ``launch.dryrun.cache_specs`` (the reference's dry run lowers
 its sharded serving with the same specs); the blocks write into it
-through ``models.cache.put``, into each rank's local shards.
+through ``models.cache``, into each rank's local shards.
+
+A cache holds its decode position as the reference's does, a 0-d int64
+tensor on the model's device, ``cache["pos"]`` (plain beside a sharded
+cache's DTensors), which ``prefill`` sets and each decode step advances.
+``Model.advance`` counts it on the host for the "cache full" check alone.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import contextlib
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
@@ -114,6 +120,8 @@ class Model(ParamTree):
         self.dist = dist if dist is not None and dist.mesh is not None \
             else None
         self.is_encdec = cfg.encoder is not None
+        # a cache's position tensor -> its count on the host (``advance``)
+        self._filled = WeakIdKeyDictionary()
 
     # -- params ---------------------------------------------------------------
     def abstract_params(self, dtype=torch.float32):
@@ -187,43 +195,31 @@ class Model(ParamTree):
 
     # -- serving ----------------------------------------------------------------
     @property
-    def static_decode(self) -> bool:
-        """Whether a decode step can read its position from the device, and
-        so launch the same ops at every position: off a mesh, a decoder
-        whose every block is full/global/window/local attention with a
-        swiglu/gelu/moe MLP. The others (MLA, RWKV, RG-LRU, the
-        encoder-decoder, a sharded model) read it from the host."""
-        if self.dist is not None or self.is_encdec:
-            return False
-        return all(b.split(":")[0] in tf.ATTN_KINDS
-                   and b.split(":")[1] in tf.MLP_KINDS
-                   for blocks, _ in self.cfg.segments for b in blocks)
-
-    @property
     def capturable_decode(self) -> bool:
         """Whether a decode step can be captured as a CUDA graph and
-        replayed: it reads its position from the device (``static_decode``)
-        and no block of it synchronises with the host (a MoE block where
+        replayed: off a mesh, a decoder whose every block is
+        full/global/window/local attention with a swiglu/gelu/moe MLP, no
+        block of it synchronising with the host (a MoE block where
         ``moe.syncs``)."""
-        has_moe = any(b.endswith(":moe")
-                      for blocks, _ in self.cfg.segments for b in blocks)
-        return self.static_decode and not (has_moe and moe_mod.syncs(self.cfg))
+        if self.dist is not None or self.is_encdec:
+            return False
+        kinds = [b.split(":") for blocks, _ in self.cfg.segments
+                 for b in blocks]
+        syncs = any(m == "moe" for _, m in kinds) and moe_mod.syncs(self.cfg)
+        return not syncs and all(a in tf.ATTN_KINDS and m in tf.MLP_KINDS
+                                 for a, m in kinds)
 
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16) -> dict:
         """Zeros (``transformer.init_cache``, ``encdec.encdec_cache``) on
-        the model's device, and, where ``static_decode``, the position
-        ``pos_dev`` (0-d int64) on it beside the host's ``pos``; with a
-        ``dist``, each tensor a DTensor placed by ``launch.dryrun.cache_specs``
+        the model's device, the position 0; with a ``dist``, each tensor
+        but the position a DTensor placed by ``launch.dryrun.cache_specs``
         (its shards made on each rank)."""
         make = encdec_mod.encdec_cache if self.is_encdec else tf.init_cache
         if self.dist is None:
-            cache = make(self.cfg, batch, seq_len, dtype, device=self.device)
-            if self.static_decode:
-                cache["pos_dev"] = torch.zeros((), dtype=torch.int64,
-                                               device=self.device)
-            return cache
+            return make(self.cfg, batch, seq_len, dtype, device=self.device)
         from ..launch.dryrun import cache_specs   # it imports this module
         shapes = make(self.cfg, batch, seq_len, dtype, device="meta")
+        shapes.pop("pos")
         mesh = self.dist.mesh
 
         def place(tree, spec):
@@ -231,14 +227,13 @@ class Model(ParamTree):
                 return {k: place(tree[k], spec[k]) for k in tree}
             if isinstance(tree, list):
                 return [place(t, sp) for t, sp in zip(tree, spec)]
-            if not isinstance(tree, torch.Tensor):
-                return tree                                  # pos
             return sharded_zeros(tree.shape, dtype=tree.dtype,
                                  device_mesh=mesh,
                                  placements=placements(spec, mesh,
                                                        tree.shape))
 
-        return place(shapes, cache_specs(shapes, self.cfg, self.dist))
+        return {"pos": torch.zeros((), dtype=torch.int64, device=self.device),
+                **place(shapes, cache_specs(shapes, self.cfg, self.dist))}
 
     def capacity(self, cache: dict):
         """Positions ``cache`` can hold; None where it never fills."""
@@ -280,9 +275,8 @@ class Model(ParamTree):
                                              cache=cache["self_kv"])
             else:
                 x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
-            cache["pos"] = T
-            if "pos_dev" in cache:
-                cache["pos_dev"].fill_(T)
+            cache["pos"].fill_(T)
+            self._filled[cache["pos"]] = T
             return tf.logits_fn(self, x[:, -1], self.cfg), cache
 
     def _placed(self, name: str, t):
@@ -295,31 +289,32 @@ class Model(ParamTree):
         spec = cache_specs({name: t}, self.cfg, self.dist)[name]
         return t.redistribute(mesh, placements(spec, mesh, t.shape))
 
-    def decode_step(self, cache: dict, tokens):
-        """tokens: [B, 1] at position ``cache["pos"]`` -> (logits [B, V],
-        cache), the cache extended in place. Raises once the full/global
-        caches are full; a model whose attention is all windowed decodes
-        without end."""
-        pos = cache["pos"]
+    def advance(self, cache: dict, steps: int) -> None:
+        """Count ``steps`` decode steps of ``cache`` on the host before they
+        run (``decode_step`` counts its own, a caller replaying a captured
+        ``decode_body`` its replays); raises where the full/global caches
+        cannot hold them. The position on the device is left as it is."""
+        filled = self._filled.get(cache["pos"], 0) + steps
         cap = self.capacity(cache)
-        if cap is not None and pos >= cap:
-            raise ValueError(f"cache full at position {pos}")
-        logits = self.decode_body(cache, tokens)
-        cache["pos"] = pos + 1
-        return logits, cache
+        if cap is not None and filled > cap:
+            raise ValueError(f"cache full: {filled} positions of {cap}")
+        self._filled[cache["pos"]] = filled
+
+    def decode_step(self, cache: dict, tokens):
+        """tokens: [B, 1] at the cache's position -> (logits [B, V],
+        cache), the cache extended in place and its position advanced.
+        Raises once the full/global caches are full (``advance``)."""
+        self.advance(cache, 1)
+        return self.decode_body(cache, tokens), cache
 
     def decode_body(self, cache: dict, tokens) -> torch.Tensor:
-        """The device's part of ``decode_step``: the logits [B, V] of
-        tokens [B, 1], the cache extended in place; the host's ``pos`` is
-        neither checked nor advanced. Where the cache keeps ``pos_dev``
-        the step reads its position there and advances it, so that every
-        step launches the same ops (``serve.ServeEngine`` replays one
-        captured step); elsewhere it reads ``pos``."""
-        pos, pos_dev = cache["pos"], cache.get("pos_dev")
-        positions = pos_dev.view(1) if pos_dev is not None else \
-            torch.arange(pos, pos + 1, device=tokens.device)
-        ctx = tf.Ctx(cfg=self.cfg, mode="decode", cache_pos=pos,
-                     dist=self.dist, positions=positions, pos_dev=pos_dev)
+        """The device's part of ``decode_step``, which leaves the host's count
+        to the caller: the logits [B, V] of tokens [B, 1], the cache and
+        its position advanced in place, the same ops at every position (so
+        that ``serve.ServeEngine`` can replay one captured step)."""
+        pos = cache["pos"]
+        ctx = tf.Ctx(cfg=self.cfg, mode="decode", dist=self.dist,
+                     positions=pos.view(1), pos=pos)
         with self.sharded_ops():
             x = tf.embed_tokens(self, tokens, self.cfg, self._dtype(),
                                 self._rules())
@@ -330,8 +325,7 @@ class Model(ParamTree):
             else:
                 x, _ = tf.forward(self, x, self.cfg, ctx, cache=cache)
             logits = tf.logits_fn(self, x[:, 0], self.cfg)
-        if pos_dev is not None:
-            pos_dev.add_(1)
+        pos.add_(1)
         return logits
 
 

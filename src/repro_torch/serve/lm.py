@@ -3,13 +3,12 @@ then decode greedily. A sharded model (``build(cfg, dist=...)``) serves
 through the same entry: its caches are DTensors, and logits that come
 back sharded (over the vocab) are gathered whole before the argmax.
 
-A model whose decode step reads its position from the device
-(``Model.static_decode``) keeps one cache in the engine, for the batch
-size of its last call, filled anew by each call's prefill; a call of
-another batch size replaces it. On CUDA, where the step can be captured
-(``Model.capturable_decode``), it is captured once for that cache as a
-CUDA graph (embedding, layers, logits, the argmax into the static token
-and the position's advance) and replayed for every later step: the host
+A model whose decode step can be captured (``Model.capturable_decode``)
+keeps one cache in the engine, for the batch size of its last call,
+filled anew by each call's prefill; a call of another batch size
+replaces it. On CUDA the step is captured once for that cache as a CUDA
+graph (embedding, layers, logits, the argmax into the static token and
+the position's advance) and replayed for every later step: the host
 launches one replay and one copy of the token a step. The other models
 decode eagerly, a new cache a call. Counters
 ``bullion.serve.decode_graph_captures``,
@@ -89,8 +88,8 @@ class ServeEngine:
         """The kept state for batch size ``B``: the last call's where it was
         of ``B`` too, else made anew in its place (the old cache and graph
         let go first, so that the engine holds one at most); None for a
-        model that decodes at a host position."""
-        if not self.model.static_decode:
+        model whose decode step cannot be captured."""
+        if not self.model.capturable_decode:
             return None
         if self._kept is None or self._kept.B != B:
             self._kept = None
@@ -131,16 +130,11 @@ class ServeEngine:
             with _trace.span("serve.decode", cat="serve",
                              steps=max_new_tokens, batch=B) as sp:
                 t0 = time.perf_counter()
-                if kept is not None and self.device.type == "cuda" \
-                        and self.model.capturable_decode:
+                if kept is not None and self.device.type == "cuda":
                     graph_steps, eager_steps = \
                         self._replay(kept, logits, out), 0
                 else:
-                    tok = _greedy(logits)
-                    for i in range(max_new_tokens):
-                        out[:, i] = tok[:, 0]
-                        logits, cache = self.model.decode_step(cache, tok)
-                        tok = _greedy(logits)
+                    self._eager(cache, _greedy(logits), out)
                     graph_steps, eager_steps = 0, max_new_tokens
                     _metrics.counter("bullion.serve.decode_eager_steps") \
                         .inc(max_new_tokens)
@@ -153,7 +147,15 @@ class ServeEngine:
                 "decode_s": t_decode,
                 "decode_tok_per_s": B * max_new_tokens / max(t_decode, 1e-9)}
 
-    def _replay(self, kept: _Shape, logits, out) -> int:
+    def _eager(self, cache: dict, tok, out) -> None:
+        """Greedy decode from ``tok`` [B, 1] into ``out`` [B, n] by n eager
+        steps, each overwriting ``tok`` with its successor."""
+        for i in range(out.shape[1]):
+            out[:, i] = tok[:, 0]
+            logits, _ = self.model.decode_step(cache, tok)
+            tok.copy_(_greedy(logits))
+
+    def _replay(self, kept: _Kept, logits, out) -> int:
         """Greedy decode from the prefill's ``logits`` into ``out`` [B, n]
         by replays of ``kept``'s graph, captured first where it has none:
         ``WARMUP_STEPS`` eager steps on a side stream, then the capture
@@ -161,9 +163,6 @@ class ServeEngine:
         first replay's), then replays from there, each incrementing the
         counters as the captured step did. Returns the replays."""
         model, cache, n = self.model, kept.cache, out.shape[1]
-        cap = model.capacity(cache)
-        if cap is not None and cache["pos"] + n > cap:
-            raise ValueError(f"cache full at position {cap}")
         start = 0
         if kept.graph is None:
             kept.tok = _greedy(logits)
@@ -171,10 +170,7 @@ class ServeEngine:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                for i in range(start):
-                    out[:, i] = kept.tok[:, 0]
-                    step_logits, _ = model.decode_step(cache, kept.tok)
-                    kept.tok.copy_(_greedy(step_logits))
+                self._eager(cache, kept.tok, out[:, :start])
             torch.cuda.current_stream(self.device).wait_stream(side)
             if start == n:
                 return 0                # every step warmed up: capture later
@@ -194,10 +190,10 @@ class ServeEngine:
         else:
             kept.tok.copy_(_greedy(logits))
             counted = 0
+        model.advance(cache, n - start)
         for i in range(start, n):
             out[:, i] = kept.tok[:, 0]
             kept.graph.replay()
-        cache["pos"] += n - start
         for name, d in kept.counts.items():
             _metrics.counter(name).inc(d * (n - start - counted))
         _metrics.counter("bullion.serve.decode_graph_replays").inc(n - start)

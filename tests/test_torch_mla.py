@@ -138,7 +138,7 @@ def test_absorbed_decode_matches_reference(layer):
             cache=jcache, cache_pos=jnp.asarray(t))
         got = tmla.mla_attention(tp, torch.tensor(x[:, t:t + 1]),
                                  torch.tensor([t]), cfg, cache=tcache,
-                                 cache_pos=t)
+                                 cache_pos=torch.tensor(t))
         assert _close(got, ref), t
     for n in ("ckv", "kr"):
         assert _close(tcache[n], jcache[n])
@@ -155,7 +155,7 @@ def test_absorbed_decode_equals_expanded_attention(layer):
                        cfg, cache=cache)
     last = tmla.mla_attention(tp, torch.tensor(x[:, T - 1:]),
                               torch.tensor([T - 1]), cfg, cache=cache,
-                              cache_pos=T - 1)
+                              cache_pos=torch.tensor(T - 1))
     assert _close(last[:, 0], full[:, -1].numpy())
 
 

@@ -234,31 +234,85 @@ def test_load_jax_params_raises(how):
         load_jax_params(tm, tree)
 
 
-def test_smoke_prefill_and_decode_match_jax():
-    """Prefill logits and 8 teacher-forced decode steps, f32, JAX weights."""
-    cfg, jm, params, tm = _smoke()
-    B, P_, steps, max_seq = 2, 12, 8, 24
-    tok = _rng(8).integers(0, cfg.vocab, (B, P_ + steps)).astype(np.int32)
-    jcache = jm.init_cache(B, max_seq, dtype=jnp.float32)
+# the decode configs: a full-attention model; local and global layers
+# decoded past their window of 8; the MoE capacity path; the dropless
+# grouped path (capacity factor E / k), windowed
+DECODE = {
+    "full": ("llama3_2_1b", {}),
+    "window": ("gemma3_12b", {}),
+    "moe_capacity": ("deepseek_moe_16b", {}),
+    "moe_grouped": ("mixtral_8x22b", {"n_experts": 8, "capacity_factor": 4.0}),
+}
+# the relative nudge of every parameter that stands for one rounding at the
+# compute dtype: half an ulp at 1.0 (tests/test_torch_distributed.py nudges
+# f32 by 2**-24)
+NUDGE = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+
+
+def _reference_decode(jm, params, tok, P_, max_seq):
+    """The reference's prefill of ``tok[:, :P_]`` and teacher-forced decode
+    steps over the rest: (the logits of every call, every cache tensor
+    after the last by (segment, block, name)), as f32 NumPy."""
+    cache = jm.init_cache(tok.shape[0], max_seq, dtype=jnp.float32)
+    ref, cache = jm.prefill(params, {"tokens": jnp.asarray(tok[:, :P_])},
+                            cache)
+    logits, dec = [ref], jax.jit(jm.decode_step)
+    for i in range(P_, tok.shape[1]):
+        ref, cache = dec(params, cache, jnp.asarray(tok[:, i:i + 1]))
+        logits.append(ref)
+    assert int(cache["pos"]) == tok.shape[1]
+    return ([np.asarray(x, np.float32) for x in logits],
+            {(si, bj, n): np.asarray(t, np.float32)
+             for si, seg in enumerate(cache["segments"])
+             for bj, c in seg.items() for n, t in c.items()})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DECODE))
+def test_smoke_prefill_and_decode_match_jax(case, dtype):
+    """Prefill logits and 10 teacher-forced decode steps at the cache's
+    position on the device (RoPE, the cache write at ``pos`` or
+    ``pos % S``, the valid slots), computing in ``dtype`` on the JAX
+    package's weights: every call's logits, the position, and every cache
+    tensor after the last, against the reference's. Each within 1e-4 of
+    its scale + 1e-5 (f32 sums in another order) or, in bf16, twice the
+    reference's own move when each of its parameters is nudged by
+    ``NUDGE`` (a bf16 rounding can flip a near-tied expert choice) where
+    larger."""
+    arch, scaled = DECODE[case]
+    jcfg = jconfigs.get_smoke(arch).scaled(compute_dtype=dtype, **scaled)
+    jm = jzoo.build(jcfg)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    tm = tzoo.build(tconfigs.get_smoke(arch).scaled(compute_dtype=dtype,
+                                                    **scaled), device="cpu")
+    load_jax_params(tm, params)
+    B, P_, steps, max_seq = 2, 12, 10, 24
+    tok = _rng(8).integers(0, jcfg.vocab, (B, P_ + steps)).astype(np.int32)
+    want, want_cache = _reference_decode(jm, params, tok, P_, max_seq)
+    rng = _rng(0)
+    nudged = jax.tree.map(lambda p: (p * (1 + rng.choice(
+        [-1.0, 1.0], p.shape) * NUDGE[dtype])).astype(np.float32), params)
+    moved, moved_cache = _reference_decode(jm, nudged, tok, P_, max_seq) \
+        if NUDGE[dtype] else (want, want_cache)
     tcache = tm.init_cache(B, max_seq, dtype=torch.float32)
-    ref, jcache = jm.prefill(params, {"tokens": jnp.asarray(tok[:, :P_])}, jcache)
     with torch.inference_mode():
-        out, tcache = tm.prefill({"tokens": torch.tensor(tok[:, :P_]).long()},
+        got, tcache = tm.prefill({"tokens": torch.tensor(tok[:, :P_]).long()},
                                  tcache)
-    scale = float(np.abs(np.asarray(ref)).max())
-    assert _err(out, ref) < 1e-4 * scale + 1e-5
-    dec = jax.jit(jm.decode_step)
-    for i in range(steps):
-        t = tok[:, P_ + i:P_ + i + 1]
-        ref, jcache = dec(params, jcache, jnp.asarray(t))
-        with torch.inference_mode():
-            out, tcache = tm.decode_step(tcache, torch.tensor(t).long())
-        assert _err(out, ref) < 1e-4 * scale + 1e-5, i
-    assert tcache["pos"] == int(jcache["pos"]) == P_ + steps
-    for n in ("k", "v"):
-        ref_c = np.asarray(jcache["segments"][0]["b0"][n])
-        assert _err(tcache["segments"][0]["b0"][n], ref_c) < \
-            1e-4 * float(np.abs(ref_c).max()) + 1e-5
+        got = [got]
+        for i in range(P_, P_ + steps):
+            out, tcache = tm.decode_step(tcache,
+                                         torch.tensor(tok[:, i:i + 1]).long())
+            got.append(out)
+    scale = float(np.abs(want[0]).max())
+    for i, (a, b, m) in enumerate(zip(got, want, moved)):
+        assert _err(a.float(), b) < max(1e-4 * scale + 1e-5,
+                                        2 * _err(m, b)), i
+    assert tcache["pos"].shape == () and int(tcache["pos"]) == P_ + steps
+    for (si, bj, n), b in want_cache.items():
+        a = tcache["segments"][si][bj][n]
+        assert _err(a, b) < max(1e-4 * float(np.abs(b).max()) + 1e-5,
+                                2 * _err(moved_cache[si, bj, n], b)), \
+            (si, bj, n)
 
 
 def test_decode_equals_full_forward():

@@ -85,23 +85,21 @@ def test_generate_bf16_compute_on_cpu():
 
 
 # ---------------------------------------------------------------------------
-# the decode step at a position held on the device
+# the decode position, held on the device
 # ---------------------------------------------------------------------------
 
 
-def _static_model(arch, dtype, **scaled):
-    """A smoke model of ``arch`` whose decode reads its position from the
-    device, computing in ``dtype``; its parameters drawn from seed 0."""
+def _capturable_model(arch, dtype, **scaled):
+    """A smoke model of ``arch`` computing in ``dtype``, its parameters
+    drawn from seed 0."""
     cfg = tconfigs.get_smoke(arch).scaled(compute_dtype=dtype, **scaled)
-    model = tzoo.build(cfg, device="cpu")
-    assert model.static_decode
-    return model
+    return tzoo.build(cfg, device="cpu")
 
 
 # a full-attention model; local and global layers decoded past their window
 # of 8; the MoE capacity path; the dropless grouped path (capacity factor
 # E / k), windowed
-STATIC = {
+CASES = {
     "full": ("llama3_2_1b", {}),
     "window": ("gemma3_12b", {}),
     "moe_capacity": ("deepseek_moe_16b", {}),
@@ -109,48 +107,31 @@ STATIC = {
 }
 
 
-def _decode(model, tok, P, host_pos):
-    """Prefill ``tok[:, :P]``, then teacher-forced decode steps over the
-    rest: (the logits of every call, the cache), the position read from
-    the host where ``host_pos`` (the cache's ``pos_dev`` taken out)."""
-    B, total = tok.shape
-    with torch.inference_mode():
-        cache = model.init_cache(B, total, dtype=torch.float32)
-        if host_pos:
-            del cache["pos_dev"]
-        logits, cache = model.prefill({"tokens": tok[:, :P]}, cache)
-        out = [logits]
-        for i in range(P, total):
-            logits, cache = model.decode_step(cache, tok[:, i:i + 1])
-            out.append(logits)
-    return out, cache
-
-
 def _tensors(cache):
     return [(si, bj, n, t) for si, seg in enumerate(cache["segments"])
             for bj, c in seg.items() for n, t in c.items()]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", list(STATIC))
-def test_device_position_decodes_as_the_host_position(case, dtype):
-    """Prefill and 10 decode steps with the position on the device (RoPE,
-    the cache write at ``pos`` or ``pos % S``, the valid slots) equal the
-    steps at the host's position bit for bit: every step's logits, every
-    cache tensor after the last, and the position, on both sides."""
-    arch, scaled = STATIC[case]
-    model = _static_model(arch, dtype, **scaled)
-    P, steps = 6, 10
-    tok = torch.tensor(np.random.default_rng(4).integers(
-        0, model.cfg.vocab, (3, P + steps)))
-    got, cache = _decode(model, tok, P, host_pos=False)
-    want, ref = _decode(model, tok, P, host_pos=True)
-    assert "pos_dev" not in ref
-    for i, (a, b) in enumerate(zip(got, want)):
-        assert torch.equal(a, b), i
-    for (si, bj, n, a), (_, _, _, b) in zip(_tensors(cache), _tensors(ref)):
-        assert torch.equal(a, b), (si, bj, n)
-    assert cache["pos"] == ref["pos"] == int(cache["pos_dev"]) == P + steps
+def test_advance_counts_on_the_host_alone():
+    """``Model.advance`` counts steps run outside ``decode_step`` (the
+    engine's replays) against the cache's capacity: it raises before
+    they would overrun it, and moves nothing on the device; each
+    ``decode_step`` counts its own, and a prefill starts the count anew."""
+    model = _capturable_model("llama3_2_1b", "float32")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    with torch.inference_mode():
+        _, cache = model.prefill({"tokens": tok}, model.init_cache(1, 8))
+        model.advance(cache, 3)
+        assert int(cache["pos"]) == 4
+        with pytest.raises(ValueError, match="full"):
+            model.advance(cache, 2)
+        model.decode_step(cache, tok[:, :1])
+        with pytest.raises(ValueError, match="full"):
+            model.decode_step(cache, tok[:, :1])
+        assert int(cache["pos"]) == 5
+        _, cache = model.prefill({"tokens": tok}, cache)
+        model.advance(cache, 4)
+        assert int(cache["pos"]) == 4
 
 
 @pytest.mark.parametrize("case", ["window", "moe_capacity"])
@@ -161,8 +142,8 @@ def test_engine_cache_reuse_carries_no_stale_state(case):
     keeps one cache for the batch size, and replaces it at a call of
     another; on the CPU every step is eager."""
     from repro_torch.obs import metrics
-    arch, scaled = STATIC[case]
-    model = _static_model(arch, "float32", **scaled)
+    arch, scaled = CASES[case]
+    model = _capturable_model(arch, "float32", **scaled)
     rng = np.random.default_rng(6)
     first = rng.integers(0, model.cfg.vocab, (2, 11)).astype(np.int32)
     second = rng.integers(0, model.cfg.vocab, (2, 5)).astype(np.int32)
@@ -182,40 +163,42 @@ def test_engine_cache_reuse_carries_no_stale_state(case):
     for (si, bj, n, x), (_, _, _, y) in zip(_tensors(kept.cache),
                                            _tensors(ref.cache)):
         assert torch.equal(x, y), (si, bj, n)
-    assert kept.cache["pos"] == int(kept.cache["pos_dev"]) == 5 + 12
+    assert int(kept.cache["pos"]) == 5 + 12
     assert kept.graph is None
     engine.generate(second[:1], 3)
     assert engine._kept is not kept and engine._kept.B == 1
 
 
-@pytest.mark.parametrize("arch,static", [
+@pytest.mark.parametrize("arch,capturable", [
     ("llama3_2_1b", True), ("gemma3_12b", True), ("starcoder2_15b", True),
     ("mixtral_8x22b", True), ("deepseek_moe_16b", True),
     ("chameleon_34b", True), ("minicpm3_4b", False), ("rwkv6_7b", False),
     ("recurrentgemma_9b", False), ("whisper_base", False)])
-def test_families_with_host_state_keep_the_host_position(arch, static):
-    """MLA, RWKV, RG-LRU and the encoder-decoder decode at the host's
-    position, as before: no ``pos_dev`` in their caches, no cache kept by
-    the engine; the attention-and-MLP decoders take the device position."""
+def test_families_with_host_state_keep_the_host_position(arch, capturable):
+    """Every family's cache holds its position on the device, a 0-d int64
+    tensor; the engine keeps a cache exactly where the decode step can be
+    captured (not MLA, RWKV, RG-LRU or the encoder-decoder)."""
     model = tzoo.build(tconfigs.get_smoke(arch), device="cpu")
-    assert model.static_decode is static
-    assert ("pos_dev" in model.init_cache(1, 8)) is static
-    if not static and model.is_encdec:
+    assert model.capturable_decode is capturable
+    pos = model.init_cache(1, 8)["pos"]
+    assert pos.shape == () and pos.dtype == torch.int64
+    assert pos.device == model.device and int(pos) == 0
+    if model.is_encdec:
         return
     engine = ServeEngine(model, max_seq=12, device="cpu")
     engine.generate(np.zeros((1, 4), np.int32), 2)
-    assert (engine._kept is not None) is static
+    assert (engine._kept is not None) is capturable
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", list(STATIC))
+@pytest.mark.parametrize("case", list(CASES))
 def test_capturable_decode_leaves_out_a_syncing_moe(case, dtype):
-    """Every model that decodes at a device position can be captured but a
-    dropless MoE computing in float32, whose grouped path reads the
-    groups' ends on the host (``moe.syncs``)."""
+    """Every attention-and-MLP decoder can be captured but a dropless MoE
+    computing in float32, whose grouped path reads the groups' ends on
+    the host (``moe.syncs``)."""
     from repro_torch.models import moe
-    arch, scaled = STATIC[case]
-    model = _static_model(arch, dtype, **scaled)
+    arch, scaled = CASES[case]
+    model = _capturable_model(arch, dtype, **scaled)
     syncs = case == "moe_grouped" and dtype == "float32"
     if case.startswith("moe"):
         assert moe.syncs(model.cfg) is syncs

@@ -230,12 +230,13 @@ def task_serve(mesh, t, out):
                .generate(batch["tokens"], t["steps"],
                          frames=batch.get("frames"))["tokens"].tolist()
                for name, model in (("sharded", m), ("unsharded", m0))}
-        cache = rec["cache"]
+        cache = dict(rec["cache"])
+        pos = int(cache.pop("pos"))     # a plain tensor beside the DTensors
         leaves = {k: _whole(v) for k, v in _cache_leaves(cache)}
         # the dim each mesh axis shards, None where it replicates
         plc = {k: [getattr(p, "dim", None) for p in v.placements]
                for k, v in _cache_leaves(cache)}
-        res[arch] = {"pos": cache["pos"], "placements": plc, **gen}
+        res[arch] = {"pos": pos, "placements": plc, **gen}
         if tdist.get_rank() == 0:
             np.savez(os.path.join(out, f"serve_{_name(t)}_{arch}.npz"),
                      logits=np.stack(rec["logits"]), **leaves)
