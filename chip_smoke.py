@@ -109,7 +109,14 @@ Phases, one JSON line each:
                        SDPA with V at 64 unpadded, with the padded and
                        the unpadded work's bounds; at RG_LOCAL beside SDPA
                        with the boolean mask; at WHISPER_ENC beside SDPA
-                       unmasked and the mma body; warm and cold
+                       unmasked and the mma body; warm and cold; then
+                       decode_attention: the decode-attention kernel at
+                       the generate cells' shapes mid-decode
+                       (DECODE_CASES, bf16 q over the f32 cache) against
+                       its plain version (the path it replaced: the cache
+                       cast to q's dtype, dot_attention), warm and cold,
+                       beside its bytes bound, the plain version and SDPA
+                       (the yardstick)
  13. families       -- the block families served at full width through
                        ServeEngine in bf16: gemma3-12b (48 layers, B=2,
                        prompt 2048, 32 new tokens: 48 flash launches a
@@ -271,6 +278,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -351,6 +359,24 @@ def zero_counts() -> None:
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def decode_kernel_calls() -> int:
+    """Layer calls of the decode-attention kernel so far, a replayed
+    step's among them (the counter ``bullion.attn.decode_kernel_calls``;
+    the wrapper's own ``launches`` counts the calls made from the host, a
+    captured step once). Each call is two or three kernels."""
+    from repro_torch.obs import metrics
+    return metrics.counter("bullion.attn.decode_kernel_calls").value
+
+
+def cache_attending(cfg) -> int:
+    """Layers whose decode step runs the decode-attention kernel: the
+    blocks of ``ATTN_KINDS`` (an encoder-decoder's segments are its decoder
+    layers), not MLA's (its own latent cache) nor the recurrent ones."""
+    from repro_torch.models.transformer import ATTN_KINDS
+    return sum(rep * sum(b.split(":")[0] in ATTN_KINDS for b in blocks)
+               for blocks, rep in cfg.segments)
 
 
 @contextlib.contextmanager
@@ -809,8 +835,10 @@ def _prefill(model, toks, attn=None):
 
 
 def phase_serve(seed: int):
-    """The main path at full width and depth, its launch count, and the
-    kernel against its plain version on the q, k, v of every layer."""
+    """The main path at full width and depth, its launch count (flash
+    attention's a prefill, the decode-attention kernel's calls a decode
+    layer a step), and the kernel against its plain version on the q, k, v
+    of every layer."""
     import repro_torch.configs as configs
     from repro_torch.kernels.flash_attention import attention, flash_attention
     from repro_torch.models.zoo import build
@@ -833,10 +861,16 @@ def phase_serve(seed: int):
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    calls0 = decode_kernel_calls()
     out = eng.generate(prompts, max_new_tokens=SERVE_NEW)      # the main path
     launched = counts()
+    decode_calls = decode_kernel_calls() - calls0
     launches = launched["flash_attention"]
     by_body = dict(flash_attention.launches_by_body)
+    check(decode_calls == cache_attending(cfg) * SERVE_NEW,
+          f"serving called the decode-attention kernel {decode_calls} "
+          f"times, expected {cache_attending(cfg)} layers x {SERVE_NEW} "
+          "steps")
     check(launched == dict(flash_attention=cfg.n_layers, range_mask=0,
                            dequant=0, dequant_packed=0, bitunpack=0,
                            page_unpack=0),
@@ -872,7 +906,7 @@ def phase_serve(seed: int):
          decode_bytes_per_step=param_bytes + cache_bytes,
          decode_tok_per_s_bound=SERVE_B / decode_bound_s,
          flash_launches_per_prefill=launches,
-         flash_launches_by_body=by_body,
+         flash_launches_by_body=by_body, decode_kernel_calls=decode_calls,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          first_tokens=gen[0, :8].tolist())
 
@@ -901,7 +935,7 @@ def phase_serve(seed: int):
              max_abs_logit=lg_plain.float().abs().max().item(),
              kernel_vs_plain=_bound(lg_plain, lg_kernel)[0],
              plain_vs_plain_f32_probs=_bound(lg_plain, lg_plain32)[0])
-    return model, prompts, gen, launches, dict(
+    return model, prompts, gen, launches, decode_calls, dict(
         prefill_ms=out["prefill_s"] * 1e3,
         decode_ms_per_step=out["decode_s"] * 1e3 / SERVE_NEW,
         prefill_bound_ms=prefill_bound_s * 1e3)
@@ -1233,6 +1267,102 @@ def phase_family_times(seed: int) -> dict:
     return out
 
 
+# decode attention at the generate cells' shapes, mid-decode: deepseek-
+# moe-16b (B 32, 16 heads of 128, MHA, a prompt of 512 and 64 new tokens:
+# step 32) and the mixtral-8x22b stage (48 query heads over 8 kv heads,
+# 2048 + 128: step 64); bf16 queries over the f32 cache, as ServeEngine
+# keeps it
+DECODE_CASES = {
+    "dsmoe": dict(B=32, H=16, Hkv=16, S=576, D=128, pos=544, layers=28),
+    "mixtral_stage": dict(B=32, H=48, Hkv=8, S=2176, D=128, pos=2112,
+                          layers=10),
+}
+
+
+def _bf16_gaps(got, want, mag) -> tuple[float, float]:
+    """How far ``got`` lies from ``want``: the largest gap in bf16 ulps of
+    ``mag``, each output's sum of p_j |v_j| (a probability that two
+    computations round to neighbouring bf16 values moves the output by its
+    ulp times |v_j|, whatever the output's own size), and the share of
+    outputs that differ at all."""
+    mag = mag.float().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    gap = (got.float() - want.float()).abs() / ulp
+    return float(gap.max()), float((got != want).float().mean())
+
+
+def phase_decode_attention(seed: int) -> dict:
+    """The decode-attention kernel at DECODE_CASES against its plain
+    version on the card (``decode_attention_ref``: the path it replaced,
+    the cache cast to q's dtype and ``dot_attention``), within one bf16
+    ulp of each output's sum of p_j |v_j| and with at most 5% of the
+    outputs other than the plain version's (``_bf16_gaps``, the limits of
+    the card tests); its device time warm and cold in L2 beside its bound
+    (the valid slots' K and V in f32, q and the output, at 3.35 TB/s), the
+    plain version's (a layer's, and times the model's layers: the step's
+    share that the kernel replaces) and SDPA's (the yardstick only: f32 q
+    over the valid slots of the f32 cache, ``enable_gqa``; the port never
+    calls it), and each of its kernels' time from the profiler. Returns
+    the rows of the kernels line."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    rng = np.random.default_rng(seed + 32)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, c in DECODE_CASES.items():
+        B, H, Hkv, S, D, at = (c[k] for k in ("B", "H", "Hkv", "S", "D",
+                                              "pos"))
+
+        def rand(*shape):
+            return torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                   device="cuda")
+        q = rand(B, 1, H, D).to(torch.bfloat16)
+        k, v = rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+        pos = torch.tensor(at, device="cuda")
+        n = at + 1
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, pos)
+        plain = decode_attention_ref(q, k, v, pos)
+        mag = decode_attention_ref(q, k, v.abs(), pos)
+        torch.cuda.synchronize()
+        check(decode_attention.launches == before + 1,
+              f"decode_attention {name}: launches")
+        ulps, diff_share = _bf16_gaps(got, plain, mag)
+        check(bool(torch.isfinite(got).all()) and ulps <= 1
+              and diff_share <= 0.05, f"decode_attention {name}: {ulps} "
+              f"bf16 ulps and {diff_share} of the outputs from the plain "
+              "version")
+        qf = q.float().transpose(1, 2)
+        kt, vt = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        bytes_moved = 2 * B * n * Hkv * D * k.element_size() \
+            + 2 * B * H * D * q.element_size()
+        row, extra = _time_kernel(
+            lambda: decode_attention(q, k, v, pos),
+            lambda: decode_attention_ref(q, k, v, pos),
+            bytes_moved=bytes_moved, ops=4 * B * H * n * D,
+            op_rate=F32_FLOP_PER_S,
+            library=lambda: sdpa(qf, kt, vt, enable_gqa=H != Hkv))
+        passes = {re.search(r"decode_attn_[a-z]+", key).group(0)
+                  if "decode_attn_" in key else key: us for key, us
+                  in _device_us(lambda: decode_attention(q, k, v, pos))
+                  .items()}
+        row.update(pass_us=passes, kernels_a_call=len(passes),
+                   plain_ms_per_step=row["plain_ms"] * c["layers"],
+                   kernel_ms_per_step=row["ms"] * c["layers"])
+        emit("decode_attention", case=name, shape=[B, H, Hkv, S, D],
+             pos=at, valid_slots=n, layers=c["layers"], q_dtype="bfloat16",
+             cache_dtype="float32", ulps_vs_plain=ulps,
+             diff_share_vs_plain=diff_share,
+             library_call="SDPA, f32 q over the valid slots, enable_gqa",
+             plain_over_kernel=row["plain_ms"] / row["ms"], **extra, **row)
+        rows[name] = dict(shape=[B, H, Hkv, S, D], pos=at,
+                          ulps_vs_plain=ulps,
+                          diff_share_vs_plain=diff_share, **row)
+        del q, k, v, kt, vt, got, plain, mag
+        torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def _moe_probes(drops: list):
     """Name the routed experts' products in the profiler (a record_function
@@ -1496,13 +1626,15 @@ def _frames(cfg, B: int, rng):
         np.float32)
 
 
-def _serve_family(seed: int, run: dict) -> int:
+def _serve_family(seed: int, run: dict) -> tuple[int, int]:
     """One family's main path: build at full width (depth as FAMILY_RUNS
     says), serve through ServeEngine (an encoder-decoder given frames
     from the seed), check the launches (one a layer in the prefill, the
-    body the rule gives, each with its block's window and causal flag)
-    and the tokens, then profile a prefill and 4 decode steps. Returns
-    the flash launches of the main path."""
+    body the rule gives, each with its block's window and causal flag),
+    the decode-attention kernel's calls (one an attention layer a step)
+    and the tokens, then profile a prefill and 4 decode steps.
+    Returns the flash launches and the decode-attention kernel's calls of
+    the main path."""
     import repro_torch.configs as configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.zoo import build
@@ -1523,8 +1655,10 @@ def _serve_family(seed: int, run: dict) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    calls0 = decode_kernel_calls()
     out = eng.generate(prompts, max_new_tokens=new, frames=frames)  # main path
     launched = counts()
+    decode_calls = decode_kernel_calls() - calls0
     by_body = {b: n for b, n in flash_attention.launches_by_body.items() if n}
     by_window = dict(flash_attention.launches_by_window)
     by_causal = dict(flash_attention.launches_by_causal)
@@ -1545,6 +1679,9 @@ def _serve_family(seed: int, run: dict) -> int:
     check(by_causal == _causal(cfg),
           f"{cfg.name}: launches by causal flag {by_causal}, expected "
           f"{_causal(cfg)}")
+    check(decode_calls == cache_attending(cfg) * new,
+          f"{cfg.name}: decode-attention kernel called {decode_calls} "
+          f"times, expected {cache_attending(cfg)} layers x {new} steps")
     gen = out["tokens"]
     check(gen.shape == (B, new) and
           bool(((gen >= 0) & (gen < cfg.vocab)).all()),
@@ -1583,13 +1720,14 @@ def _serve_family(seed: int, run: dict) -> int:
          flash_launches_by_body=by_body,
          flash_launches_by_window={str(w): n for w, n in by_window.items()},
          flash_launches_by_causal={str(c): n for c, n in by_causal.items()},
+         decode_kernel_calls=decode_calls,
          encoder=dataclasses.asdict(cfg.encoder) if cfg.encoder else None,
          peak_mem_gb=peak_gb, first_tokens=gen[0, :8].tolist(),
          logits_finite=all(finite), wkv_overflow=overflow,
          profile=prof, host_s=time.perf_counter() - t0)
     del eng, model
     torch.cuda.empty_cache()
-    return launched["flash_attention"]
+    return launched["flash_attention"], decode_calls
 
 
 def _family_logits(cfg, seed: int, B: int, P: int, steps: int,
@@ -1738,7 +1876,7 @@ def _local_layer_check(cfg, seed: int, B: int, P: int, steps: int) -> None:
 
 
 def _encdec_attention_check(cfg, seed: int, B: int, P: int,
-                            steps: int) -> None:
+                            steps: int) -> int:
     """whisper-base at full width, bf16, held on its attention outputs
     (before the output projection), where the kernel is the whole
     signal. Every flash launch of a prefill against the plain
@@ -1746,12 +1884,16 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
     encoder's (not causal, over the 1500 frames) and the decoder's
     (causal) at the prompt and at each fresh prefill of prompt + the
     tokens generated so far (P + 1 .. P + steps keys). Each decode step's
-    self-attention over the cache (plain) against the last row of the
+    self-attention over the cache (the decode-attention kernel) against
+    the last row of the
     kernel's decoder launch at that step's fresh prefill. Bound as in
     phase logits. Beside each fresh prefill, not held: its logits through
     the kernel and the bf16-probability plain version against the
     f32-probability one, the witness that rounding the probabilities alone
-    moves this random-init model's logits past the bound (PERF.md)."""
+    moves this random-init model's logits past the bound (PERF.md).
+    Returns the decode-attention kernel's calls in the decode steps, one a
+    step (the decoder's one layer), each launched from the host."""
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import attention
     from repro_torch.models import transformer
     from repro_torch.models.zoo import build
@@ -1769,10 +1911,10 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
                              out=out))
         return out
 
-    def dot_spy(q, k, v, *args, **kw):
+    def cache_spy(q, k, v, *args, **kw):
         # the decoder's self-attention over the cache
         # (transformer.decode_attention; the cross-attention is encdec's)
-        out = dot_attention(q, k, v, *args, **kw)
+        out = cache_attention(q, k, v, *args, **kw)
         decoded.append(out)
         return out
 
@@ -1790,19 +1932,20 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
         rows.append([[c["err"], c["bound"]] for c in launched])
 
     rows, dec_errs, dec_bounds = [], [], []
-    dot_attention = transformer.dot_attention
+    cache_attention = transformer.cache_attention
     with torch.inference_mode():
         toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
         lg, cache = prefill(toks)
         held()
         gen = [lg.argmax(-1)[:, None]]
+        calls0 = (decode_kernel_calls(), decode_attention.launches)
         for i in range(steps):
             decoded.clear()
-            transformer.dot_attention = dot_spy
+            transformer.cache_attention = cache_spy
             try:
                 lg_dec, cache = model.decode_step(cache, gen[-1])
             finally:
-                transformer.dot_attention = dot_attention
+                transformer.cache_attention = cache_attention
             check(bool(torch.isfinite(lg_dec).all()) and len(decoded) == 1,
                   f"{cfg.name}: decode step {i}")
             seq = torch.cat([toks, *gen], dim=1)     # its last row: P + i
@@ -1820,6 +1963,12 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
                      lg32, prefill(seq, _plain)[0])[0],
                  decode_vs_plain_f32_probs=_bound(lg32, lg_dec)[0])
             gen.append(lg_dec.argmax(-1)[:, None])
+    calls = decode_kernel_calls() - calls0[0]
+    check(calls == decode_attention.launches - calls0[1]
+          == cache_attending(cfg) * steps,
+          f"{cfg.name}: decode-attention kernel called {calls} times, "
+          f"launched {decode_attention.launches - calls0[1]}, expected "
+          f"{cache_attending(cfg)} layers x {steps} steps")
     emit("family_logits", arch=cfg.name, n_layers=cfg.n_layers,
          encoder_layers=cfg.encoder.n_layers, dtype="bfloat16",
          check="attention_kernel_vs_plain_f32_probs",
@@ -1837,6 +1986,7 @@ def _encdec_attention_check(cfg, seed: int, B: int, P: int,
           f"{cfg.name} decode attention: {dec_errs} against {dec_bounds}")
     del model, cache
     torch.cuda.empty_cache()
+    return calls
 
 
 WKV_W0 = -5.0     # the decay bias of phase families' route check
@@ -1892,13 +2042,14 @@ def phase_families(seed: int) -> dict:
     layer, and its two WKV routes against each other; whisper-base at one
     encoder and one decoder layer over 1500 frames, its logits at f32 and
     its attention outputs at bf16).
-    Returns the flash launches of each main path."""
+    Returns the flash launches of each main path, and the decode-attention
+    kernel's calls of each and of whisper-base's attention check."""
     import repro_torch.configs as configs
-    launches, host_s = {}, {}
+    launches, decode_calls, host_s = {}, {}, {}
     for run in FAMILY_RUNS:
         t0 = time.perf_counter()
         label = _family_label(run)
-        launches[label] = _serve_family(seed, run)
+        launches[label], decode_calls[label] = _serve_family(seed, run)
         host_s[label] = time.perf_counter() - t0
     t0 = time.perf_counter()
     gemma = configs.get("gemma3_12b")
@@ -1940,11 +2091,11 @@ def phase_families(seed: int) -> dict:
                                                      n_layers=1))
     _family_logits(one.scaled(compute_dtype="float32"), seed, B=2, P=64,
                    steps=8, dtype=torch.float32)
-    _encdec_attention_check(one.scaled(compute_dtype="bfloat16"), seed,
-                            B=2, P=64, steps=8)
+    decode_calls["whisper_base_attention_check"] = _encdec_attention_check(
+        one.scaled(compute_dtype="bfloat16"), seed, B=2, P=64, steps=8)
     host_s["logit_checks"] = time.perf_counter() - t0
     emit("families", host_s=host_s)
-    return launches
+    return launches, decode_calls
 
 
 FILTER_CS = (1, 2, 4, 8)
@@ -3813,7 +3964,9 @@ def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
     """ServeEngine with a sharded model on the (1, 1) NCCL mesh: llama3.2-1b
     at full width and depth, bf16, phase serve's prompts and work; its
     launches, tokens, times and cost count; then each family's pattern
-    sharded against unsharded. Returns the prefill's flash launches."""
+    sharded against unsharded. Returns the prefill's flash launches and
+    the decode-attention kernel's calls of the main path (on local shards,
+    ``local_heads``)."""
     import torch.distributed as tdist
     import repro_torch.configs as configs
     from repro_torch.distributed import make_dist
@@ -3830,8 +3983,10 @@ def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
         eng.generate(prompts, max_new_tokens=SERVE_NEW)          # warm-up
         torch.cuda.synchronize()
         zero_counts()
+        calls0 = decode_kernel_calls()
         out = eng.generate(prompts, max_new_tokens=SERVE_NEW)   # the main path
         launched = counts()
+        decode_calls = decode_kernel_calls() - calls0
         by_body = dict(flash_attention.launches_by_body)
         launches = launched["flash_attention"]
         # the real sharded prefill counted (the kernel launched), and the
@@ -3864,6 +4019,7 @@ def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
                    counted_bytes=real["bytes"],
                    counted_collective_bytes=real["collective_bytes"],
                    counted_flash_launches=counted_launches,
+                   decode_kernel_calls=decode_calls,
                    roofline_bound_ms=terms["bound_s"] * 1e3,
                    roofline_dominant=terms["dominant"],
                    serve_bounds_prefill_ms=serve["prefill_bound_ms"],
@@ -3875,6 +4031,10 @@ def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
               f"sharded serving launched {launched}")
         check(by_body == dict(simt=0, mma=0, wgmma=cfg.n_layers),
               f"sharded serving launched the bodies {by_body}")
+        check(decode_calls == cache_attending(cfg) * SERVE_NEW,
+              f"sharded serving called the decode-attention kernel "
+              f"{decode_calls} times, expected {cache_attending(cfg)} "
+              f"layers x {SERVE_NEW} steps")
         check(row["tokens_equal_serve"],
               "sharded tokens differ from phase serve's")
         check(counted_launches == cfg.n_layers,
@@ -3890,7 +4050,7 @@ def phase_sharded_serve(seed: int, tmp: str, prompts, gen, serve: dict):
                           B, P, SHARDED_STEPS, dtype)
     finally:
         tdist.destroy_process_group()
-    return launches
+    return launches, decode_calls
 
 
 DRYRUN_CELLS = (("llama3.2-1b", None, False), ("llama3.2-1b", "decode_32k", True),
@@ -4306,7 +4466,8 @@ def main(argv=None) -> int:
     filter_err = phase_filter_kernels(args.seed)
     dequant_err = phase_dequant_kernels(args.seed)
     bitunpack_launches, bitunpack_err = phase_bitunpack_kernels(args.seed)
-    model, prompts, gen, launches, serve_times = phase_serve(args.seed)
+    model, prompts, gen, launches, decode_calls, serve_times = \
+        phase_serve(args.seed)
     phase_profile(model, prompts)
     del model
     torch.cuda.empty_cache()
@@ -4314,8 +4475,9 @@ def main(argv=None) -> int:
     row, wide = phase_times(args.seed)
     window_row = phase_window_times(args.seed)
     family_rows = phase_family_times(args.seed)
+    decode_rows = phase_decode_attention(args.seed)
     t1 = time.perf_counter()
-    family_launches = phase_families(args.seed)
+    family_launches, family_decode_calls = phase_families(args.seed)
     families_s = time.perf_counter() - t1
     filter_row = phase_filter_times(args.seed)
     dequant_row = phase_dequant_times(args.seed)
@@ -4340,8 +4502,9 @@ def main(argv=None) -> int:
         timed("export", phase_export, tmp)
         train = timed("train", phase_train, args.seed, tmp)
         dist = timed("distributed", phase_distributed, args.seed, tmp)
-        sharded_launches = timed("sharded_serve", phase_sharded_serve,
-                                 args.seed, tmp, prompts, gen, serve_times)
+        sharded_launches, sharded_decode_calls = timed(
+            "sharded_serve", phase_sharded_serve, args.seed, tmp, prompts,
+            gen, serve_times)
         timed("dryrun", phase_dryrun, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4425,7 +4588,18 @@ def main(argv=None) -> int:
              launches=scan_ads["page_unpack"], max_abs_err=0.0,
              launches_by_phase={k: v["page_unpack"]
                                 for k, v in by_phase.items()},
-             **unpack_row)]}), flush=True)
+             **unpack_row),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="none: the reference leaves decode attention to XLA "
+             "as dot_attention (src/repro/models/transformer.py)",
+             layer_calls=decode_calls,
+             layer_calls_by_phase={
+                 "serve": decode_calls,
+                 "sharded_serve": sharded_decode_calls,
+                 **{f"families_{arch}": n for arch, n
+                    in family_decode_calls.items()}},
+             **decode_rows)]}), flush=True)
     emit("done", seconds=time.perf_counter() - t0, read_phase_s=phase_s,
          families_s=families_s)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,10 @@
 
   bitunpack       — BP32 bit-planar unpack (``csrc/bitunpack.cu``; replaces
                     ``repro/kernels/bitunpack/kernel.py`` ``bitunpack_pallas``)
+  decode_attention — a decode step's attention over the f32 or bf16 KV
+                    cache at the position held on the card
+                    (``csrc/decode_attention.cu``; replaces no TPU kernel:
+                    the reference leaves decode attention to XLA)
   dequant         — fused per-column dequantize + cast, the read path's
                     dequantize step (``csrc/dequant.cu``; replaces
                     ``repro/kernels/dequant/kernel.py`` ``dequant_pallas``)
@@ -21,4 +25,5 @@ version (``ref.py``). ``_build`` compiles the sources with ``nvcc`` at first
 use; nothing here builds or touches CUDA on import.
 """
 
-__all__ = ["bitunpack", "dequant", "filter", "flash_attention", "page_unpack"]
+__all__ = ["bitunpack", "decode_attention", "dequant", "filter",
+           "flash_attention", "page_unpack"]

@@ -22,8 +22,10 @@ int64 tensor on the device (``Ctx.pos``) for RoPE, the cache write and the
 valid slots, so that it launches the same ops at every position. Prefill
 and training attention run the flash-attention kernel with the block's
 window (training through its autograd Function, with a plain backward);
-decode attention (one query over the cache, with ``kv_valid``) stays plain
-PyTorch, as the reference leaves it to XLA outside any kernel. Training
+decode attention (one query over the cache) runs the decode-attention
+kernel on CUDA, which reads the cache once, in its own dtype, and only
+its valid slots, where the reference leaves it to XLA as plain
+``dot_attention``; on the CPU it stays that plain version. Training
 rematerialises each layer, as the reference's ``jax.checkpoint`` of its
 scan body does.
 
@@ -32,10 +34,11 @@ residual stream is held at ``("batch", "seq", None)`` before the layers
 and after each repeat of a segment's pattern, as the reference constrains
 it; the embedding gather runs on each rank's batch rows against the whole
 table (``_sharded_gather``); attention launches the kernel on local
-shards (``kernels.flash_attention.attention``), decode attention plain
-on the same local shards (``local_heads``); the MoE and RWKV blocks take
-``dist`` (``models/moe.py``, ``models/rwkv6.py``). Every other op is
-DTensor's own, 3-D products on flat rows (``layers._mm``).
+shards (``kernels.flash_attention.attention``), decode attention its
+own kernel (plain on the CPU) on the same local shards (``local_heads``);
+the MoE and RWKV blocks take ``dist`` (``models/moe.py``,
+``models/rwkv6.py``). Every other op is DTensor's own, 3-D products on
+flat rows (``layers._mm``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.decode_attention import decode_attention as cache_attention
 from ..kernels.flash_attention import attention
 from ..kernels.flash_attention.ops import local_heads
 from . import mla as mla_mod
@@ -270,29 +274,36 @@ def decode_attention(q, k, v, cache, ctx: Ctx, *, window: int = 0):
     """One decode step over a layer's cache of S slots, a rolling buffer
     where ``window``: k, v [B, 1, Hkv, D] written in place at the slot of
     the position ``ctx.pos`` (``pos % S`` rolling), then q [B, 1, H, D]
-    over the slots written -> [B, 1, H, D], plain (``dot_attention``, the
-    cache cast to q's dtype), as the reference leaves it outside any
-    kernel. DTensors run on each rank's batch rows and query heads, the
-    cache's sequence whole (``local_heads``)."""
+    over the slots written -> [B, 1, H, D]: on CUDA the decode-attention
+    kernel (``kernels.decode_attention``, the cache read in its own dtype
+    and rounded to q's in registers), elsewhere plain (``dot_attention``,
+    the cache cast to q's dtype), as the reference leaves it outside any
+    kernel; the two compute one function. DTensors run on each rank's
+    batch rows and query heads, the cache's sequence whole
+    (``local_heads``)."""
     S, pos = cache["k"].shape[1], ctx.pos
     slot = torch.remainder(pos, S) if window else pos
     put_slot(cache, "k", k, slot)
     put_slot(cache, "v", v, slot)
-    if window:
-        kv_pos = _rolling_pos(pos, S, q.device)
-        kv_valid = kv_pos >= 0
+    if q.device.type == "cuda":
+        def attend(ql, kl, vl):
+            return cache_attention(ql, kl, vl, pos, window=window)
     else:
-        kv_pos = torch.arange(S, device=q.device)
-        kv_valid = kv_pos <= pos
+        if window:
+            kv_pos = _rolling_pos(pos, S, q.device)
+            kv_valid = kv_pos >= 0
+        else:
+            kv_pos = torch.arange(S, device=q.device)
+            kv_valid = kv_pos <= pos
 
-    def plain(ql, kl, vl):
-        valid = kv_valid[None, :].expand(ql.shape[0], kl.shape[1])
-        return dot_attention(ql, kl.to(ql.dtype), vl.to(ql.dtype),
-                             ctx.positions, kv_pos, causal=True,
-                             window=window, kv_valid=valid)
+        def attend(ql, kl, vl):
+            valid = kv_valid[None, :].expand(ql.shape[0], kl.shape[1])
+            return dot_attention(ql, kl.to(ql.dtype), vl.to(ql.dtype),
+                                 ctx.positions, kv_pos, causal=True,
+                                 window=window, kv_valid=valid)
     if isinstance(q, DTensor):
-        return local_heads(plain, q, cache["k"], cache["v"])
-    return plain(q, cache["k"], cache["v"])
+        return local_heads(attend, q, cache["k"], cache["v"])
+    return attend(q, cache["k"], cache["v"])
 
 
 def apply_block(p, x, block: str, ctx: Ctx, cache=None):

@@ -8,8 +8,9 @@ encoder-decoder (its encoder's non-causal launches) against the plain
 route, predicate and quantized reads on CUDA against the CPU, and the
 sharded training step and MoE on a (1, 1) NCCL mesh against the unsharded
 model, the MoE's grouped path at mixtral-8x22b's width with no host
-synchronisation, and decode replayed from a CUDA graph against eager
-decode. They skip where CUDA is absent. On an H100:
+synchronisation, decode replayed from a CUDA graph against eager decode,
+and the decode-attention kernel against the model's plain decode
+attention. They skip where CUDA is absent. On an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -1211,3 +1212,226 @@ def test_page_decode_on_cuda_matches_numpy(cuda, tmp_path, monkeypatch):
             assert got[name].dtype == want[name].dtype
             assert np.array_equal(got[name].view(np.uint8),
                                   want[name].view(np.uint8)), name
+
+
+# ---------------------------------------------------------------------------
+# Decode attention on the card: the decode-attention kernel
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, S, D, window, pos, q dtype, cache dtype): MHA at deepseek-
+# moe-16b's shape, GQA 6:1 at the mixtral stage's, G = 12 (two blocks of
+# heads, the second of 4), MQA with G = 16 at D = 256, D = 16 and 64, a
+# cache of 5,000 slots;
+# rolling buffers before and after they wrap; pos 0 and S - 1; f32 and
+# bf16 caches, an f32 model
+BF, F32 = torch.bfloat16, torch.float32
+DECODE_CASES = {
+    "dsmoe_mha": (32, 16, 16, 576, 128, 0, 544, BF, F32),
+    "mixtral_gqa6": (32, 48, 8, 2176, 128, 0, 2112, BF, F32),
+    "mixtral_gqa6_f32_model": (32, 48, 8, 2176, 128, 0, 2112, F32, F32),
+    "starcoder2_gqa12": (2, 48, 4, 300, 128, 0, 299, BF, F32),
+    "rg_mqa_d256": (2, 16, 1, 257, 256, 0, 130, BF, F32),
+    "d64_bf16_cache": (4, 8, 2, 300, 64, 0, 150, BF, BF),
+    "d64_f32_model": (4, 8, 2, 300, 64, 0, 211, F32, F32),
+    "d128_f32_model_bf16_cache": (2, 8, 8, 200, 128, 0, 199, F32, BF),
+    "d256_pos0": (2, 16, 8, 1024, 256, 0, 0, BF, F32),
+    "d16_smoke": (4, 4, 2, 32, 16, 0, 31, BF, F32),
+    "mqa_long_cache": (2, 4, 1, 5000, 64, 0, 4321, BF, F32),
+    "rolling_before_wrap": (2, 16, 8, 64, 256, 64, 40, BF, F32),
+    "rolling_after_wrap": (2, 16, 8, 64, 256, 64, 200, BF, F32),
+    "rolling_f32_model": (2, 8, 2, 48, 64, 48, 100, F32, F32),
+}
+
+
+def _decode_inputs(cuda, B, H, Hkv, S, D, q_dtype, cache_dtype, seed=0,
+                   q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(q_scale * rng.standard_normal((B, 1, H, D),
+                                                      np.float32),
+                        device=cuda).to(q_dtype)
+    k, v = (torch.as_tensor(rng.standard_normal((B, S, Hkv, D), np.float32),
+                            device=cuda).to(cache_dtype) for _ in range(2))
+    return q, k, v
+
+
+def _gaps(got, want, mag):
+    """How far ``got`` lies from ``want``: the largest gap in ulps of q's
+    dtype (bf16: 8 bits of mantissa, f32: 24) of ``mag``, each output's
+    sum of p_j |v_j| (a probability the two round to neighbouring values
+    moves the output by its own ulp times |v_j|, whatever the output's
+    size), and the share of outputs that differ at all."""
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    mag = mag.float().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
+    gap = (got.float() - want.float()).abs() / ulp
+    return float(gap.max()), float((got != want).float().mean())
+
+
+# bf16: the largest gap within one ulp of p|v| (one output or one
+# probability rounded to its other neighbour: summed in another order, the
+# kernel and the plain version part so at a few outputs, up to 1 ulp and
+# 1% of the outputs on an H100), and at most 5% of the outputs other than
+# the plain version's. Leaving out the rounding of k moves 40-76% of the
+# outputs (3-12 ulps where the softmax is peaked), of the probabilities
+# 22-44% (test_decode_attention_keeps_the_rounding_points); at unit-normal
+# queries either stays within 1 ulp, so the share is what tells them
+# apart. f32: within 64 ulps, any share (a score of ~30 off by its last
+# bits moves its probability by ~30 ulps)
+BF16_MAX_ULPS, BF16_DIFF_SHARE, F32_MAX_ULPS = 1.0, 0.05, 64
+
+
+def _within(got, want, mag) -> bool:
+    worst, share = _gaps(got, want, mag)
+    if want.dtype == torch.bfloat16:
+        return worst <= BF16_MAX_ULPS and share <= BF16_DIFF_SHARE
+    return worst <= F32_MAX_ULPS
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_matches_plain(cuda, case):
+    """The kernel against the model's plain decode attention on the card
+    (``decode_attention_ref``: ``dot_attention`` over the cache cast to q's
+    dtype), in q's dtype, within ``_within``'s limits; equal shape, dtype,
+    and finite."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    B, H, Hkv, S, D, window, at, q_dtype, cache_dtype = DECODE_CASES[case]
+    q, k, v = _decode_inputs(cuda, B, H, Hkv, S, D, q_dtype, cache_dtype)
+    pos = torch.tensor(at, device=cuda)
+    got = decode_attention(q, k, v, pos, window=window)
+    want = decode_attention_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == q_dtype
+    assert bool(torch.isfinite(got).all())
+    mag = decode_attention_ref(q, k, v.abs(), pos)
+    assert _within(got, want, mag), _gaps(got, want, mag)
+
+
+def _unrounded(q, k, v, pos, part):
+    """The plain version with one of its roundings left out, the faults
+    the bf16 limits must catch: ``"k"`` the scores over the unrounded
+    cache, ``"p"`` the unrounded probabilities times v."""
+    from repro_torch.models.layers import dot_attention
+    S = k.shape[1]
+    slots = torch.arange(S, device=q.device)
+    valid = (slots <= pos)[None, :].expand(q.shape[0], S)
+    if part == "k":
+        k, v = k.float(), v.to(q.dtype)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype).float()
+    return dot_attention(q, k, v, slots[:1], slots, causal=False,
+                         kv_valid=valid).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", ["dsmoe_mha", "mixtral_gqa6",
+                                  "starcoder2_gqa12", "rg_mqa_d256"])
+def test_decode_attention_keeps_the_rounding_points(cuda, case):
+    """bf16 queries 8 times the unit normal, so that the softmax is peaked
+    and each score's rounding shows: the kernel within ``_within``'s
+    limits of the plain version, while the plain version without the
+    rounding of k, or of the probabilities, lies outside them (the kernel
+    rounds where the reference does, and adds no precision)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    B, H, Hkv, S, D, window, at, q_dtype, cache_dtype = DECODE_CASES[case]
+    q, k, v = _decode_inputs(cuda, B, H, Hkv, S, D, q_dtype, cache_dtype,
+                             seed=1, q_scale=8.0)
+    pos = torch.tensor(at, device=cuda)
+    want = decode_attention_ref(q, k, v, pos)
+    mag = decode_attention_ref(q, k, v.abs(), pos)
+    got = decode_attention(q, k, v, pos)
+    assert _within(got, want, mag), _gaps(got, want, mag)
+    for part in ("k", "p"):
+        planted = _unrounded(q, k, v, pos, part)
+        assert not _within(planted, want, mag), \
+            (part, _gaps(planted, want, mag))
+
+
+def test_decode_attention_reads_no_slot_past_pos(cuda):
+    """Slots past the position hold NaN: the output stays finite and
+    unchanged, so the kernel never loads them (a NaN times a zero
+    probability would spread)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    q, k, v = _decode_inputs(cuda, 4, 8, 2, 300, 128, BF, F32)
+    pos = torch.tensor(100, device=cuda)
+    want = decode_attention(q, k, v, pos)
+    k[:, 101:], v[:, 101:] = float("nan"), float("nan")
+    got = decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_decode_attention_replays_at_every_position(cuda):
+    """One launch captured in a CUDA graph at one position replays at
+    others, read from the position tensor on the card: equal bit for bit
+    to an eager call at each, for a full cache and a rolling buffer."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    for S, window, positions in ((576, 0, (0, 17, 300, 575)),
+                                 (64, 64, (5, 63, 64, 150))):
+        q, k, v = _decode_inputs(cuda, 8, 12, 2, S, 128, BF, F32)
+        pos = torch.tensor(positions[0] + 1, device=cuda)
+        side = torch.cuda.Stream(cuda)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            decode_attention(q, k, v, pos, window=window)     # warm-up
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(q, k, v, pos, window=window)
+        for at in positions:
+            pos.fill_(at)
+            graph.replay()
+            want = decode_attention(q, k, v, pos, window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (S, at)
+
+
+def test_decode_attention_counts_a_call_a_layer_a_step(cuda):
+    """Eager decode steps launch the kernel once an attention layer a step
+    (``decode_attention.launches`` and ``bullion.attn.decode_kernel_calls``
+    alike); through ``ServeEngine``, whose steps replay a captured graph,
+    the counter counts every step too."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.obs import metrics
+    from repro_torch.serve import ServeEngine
+    from repro_torch.models.transformer import ATTN_KINDS
+    model = _graph_model(cuda, "moe_capacity")
+    layers = sum(n * sum(b.split(":")[0] in ATTN_KINDS for b in blocks)
+                 for blocks, n in model.cfg.segments)
+    assert layers
+    calls = metrics.counter("bullion.attn.decode_kernel_calls")
+    rng = np.random.default_rng(14)
+    prompts = rng.integers(0, model.cfg.vocab, (4, 8)).astype(np.int32)
+    before = (decode_attention.launches, calls.value)
+    _eager_generate(model, prompts, 6, 24)
+    assert (decode_attention.launches - before[0],
+            calls.value - before[1]) == (6 * layers, 6 * layers)
+    engine = ServeEngine(model, max_seq=24, device=cuda)
+    for n in (7, 9):                 # the first captures, the second replays
+        before = calls.value
+        engine.generate(prompts, n)
+        assert engine._kept.graph is not None
+        assert calls.value - before == n * layers
+
+
+def test_decode_attention_raises_on_what_it_does_not_take(cuda):
+    """A head dim without an instance, fp16, a position that is not a 0-d
+    int64 tensor on the card, a rolling buffer longer than its window, a
+    cache view off its 4-element vectors: each raises, nothing launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    q, k, v = _decode_inputs(cuda, 2, 4, 2, 64, 128, BF, F32)
+    pos = torch.tensor(10, device=cuda)
+    before = decode_attention.launches
+    bad = [
+        lambda: decode_attention(q[..., :96], k[..., :96], v[..., :96], pos),
+        lambda: decode_attention(q.half(), k, v, pos),
+        lambda: decode_attention(q, k, v, pos.int()),
+        lambda: decode_attention(q, k, v, pos.cpu()),
+        lambda: decode_attention(q, k, v, pos, window=32),
+        lambda: decode_attention(q, k.view(-1)[2:2 + 2 * 63 * 2 * 128]
+                                 .view(2, 63, 2, 128), v[:, :63], pos),
+    ]
+    for fn in bad:
+        with pytest.raises(ValueError):
+            fn()
+    assert decode_attention.launches == before
